@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's draw3d frame on one CUDA card and check it.
+"""Drive the PyTorch port's two frames on one CUDA card and check them: the
+exact-int draw3d raster frame and the ray-traced frame.
 
     python3 chip_smoke.py
 
@@ -7,7 +8,8 @@ exits non-zero, and only a run where every phase passed prints the final
 ``{"ok": true, ...}`` line:
 
   1. device  — needs torch.cuda; prints nvidia-smi's name and power limit
-  2. build   — compiles skybox_rt_tpu_torch/csrc/*.cu with nvcc (sm_90a)
+  2. build   — compiles skybox_rt_tpu_torch/csrc/*.cu with nvcc (sm_90a),
+               one nvcc per source at the same time
   3. kernel  — the CUDA visibility kernel against its plain torch version,
                bit for bit: every draw of the synthetic trace at 256x256,
                fused and K-slot, tile_logsize 3..6, stencil/depth OM
@@ -21,6 +23,36 @@ exits non-zero, and only a run where every phase passed prints the final
                committed sha256
   6. timing  — CUDA events, median of 20 after warm-up: kernel vs plain
                pass 1 at 256x256 and 1024x1024, and the whole 256x256 frame
+  7. rt_kernel_vs_plain — the closest-hit and any-hit BVH kernels against
+               their plain torch versions: the small check scenes whole,
+               then the 184,832-triangle sphere field on 65,536 rays of
+               each of the six launches of the real 1024x1024 frame
+               (primary, bounce 1, bounce 2, each with its shadow launch;
+               bounce launches hold parked rays), captured from the port's
+               trace_rays, and on the whole primary and primary-shadow
+               launches.  prim, miss mask and occlusion must be equal;
+               t, u, v may differ by rtol 1e-6 at most (bit equality is
+               expected; the count of rays that are not is printed)
+  8. rt_frame_256 — make_frame_fn at 256x256, 2 bounces, shadows, on the
+               default device against the committed JAX golden
+               (data/rt_northstar_256.npz, rendered from the same rays):
+               atol 1e-4 and >= 99.9 % of values within 2e-5; 3 + 3 launches
+  9. rt_frame_1024 — the full-width frame, 1,048,576 rays: finite, alpha 1,
+               primary hit mask equal to the plain version's on a 65,536-ray
+               sample, 3 + 3 launches (the counts are set to 0 just before
+               and read just after)
+ 10. rt_timing — CUDA events, median of 20: each of the six launches'
+               kernels alone, the plain versions on the samples, the whole
+               1024x1024 frame; host seconds of the BVH build and the block
+               preparation (printed, not judged)
+
+The ``kernels`` line gives each kernel's time beside its bound, both terms
+of it: ``bound_bytes_ms`` (inputs read once, outputs written once; holds
+for any algorithm) and ``bound_ops_ms`` (the operations this algorithm did
+on this run's data; for the ray queries, the tests made at the shipped
+block size).  The ray queries' ``ms`` and ``bound_ms`` are those of the
+primary launch; ``launch_ms``, ``frame_ms`` and ``frame_bound_ms`` cover
+the three launches of a frame.
 
 The script imports no JAX: the references it checks against are committed
 files (skybox_rt_tpu_torch/data/).
@@ -41,6 +73,38 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WARMUP, REPS = 3, 20
 SIZE = 256
 TEXTURED_DRAW = 1
+
+# Published peaks of one H100 SXM at its full 700 W: device memory rate and
+# float32 outside the tensor cores (NVIDIA's data sheet), int32 outside the
+# tensor cores (the H100 architecture whitepaper's table of peak rates: half
+# of an SM's 128 float32 lanes also do int32).  Both count a multiply-add as
+# two operations, so the counts below take a multiply and an add as one each.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 33.5e12
+# Operations of the visibility kernel's inner loop (csrc/raster_visibility.cu,
+# visibility_kernel), counted from its body.  Every pixel does for every real
+# prim of its tile: three edge functions (2 multiplies + 2 adds each, 12),
+# three sign compares and three ands with the scissor flag.
+RASTER_STEP_INT_OPS = 18
+# A covered pixel (fused outputs, depth-stencil test on the shaded z) adds,
+# in float32: 3 int->float + 3 multiplies, 2 adds, 1 divide, 2 multiplies by
+# the reciprocal, and per to_fixed24_x86 a multiply, a truncation, 3 compares
+# and a convert (12 for the two) ...
+RASTER_COVERED_FLOAT_OPS = 23
+# ... and in int32: two imadd24 (mul.lo, mul.hi, funnel shift, add: 8) and
+# ds_step (5 masks/shifts of the operands, 2 compares, their and, 2 selects
+# of the stencil op, the op itself 2, shift + or of the result, 2 + 3 for the
+# write mask, 4 for the masked merge: 23).
+RASTER_COVERED_INT_OPS = 31
+# float operations of one Möller–Trumbore test (csrc/rt_bvh.cu mt_one and
+# the caller's t < bound: two cross products 18, four dot products 20, tvec
+# 3, 1 divide, 3 multiplies by 1/det, u + v, |det|, 6 compares) and of one
+# slab test (6 subtracts, 6 multiplies, 12 min/max, 1 compare)
+MT_OPS = 53
+SLAB_OPS = 25
+RT_SAMPLE = 65536
+RT_SIZE = 1024         # the full-width frame
 
 
 def phase(name, **fields):
@@ -85,6 +149,312 @@ def max_abs_err(got, want) -> int:
     if err:
         raise AssertionError(f"kernel != plain version, max |diff| {err}")
     return err
+
+
+def bound(bytes_moved: int, float_ops: int, int_ops: int = 0) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the peak rate, and which of them.
+    int32 operations run on half of the float32 lanes, so the operations
+    take at least int_ops at the int32 rate and all of them at the float32
+    rate.  Both terms are returned: ``bound_bytes_ms`` holds for any
+    algorithm that computes the function, ``bound_ops_ms`` for the
+    operations this algorithm did on this run's data."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = max(int_ops / INT32_OPS_PER_S,
+                 (int_ops + float_ops) / FP32_OPS_PER_S) * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes_ms": by_bytes, "bound_ops_ms": by_ops,
+            "bytes": int(bytes_moved), "operations": int(int_ops + float_ops)}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def northstar_scene():
+    """The full-width ray-traced workload: the 184,832-triangle sphere
+    field with mirror reflectivity 0.35 (not finalized yet) and its camera."""
+    from skybox_rt_tpu_torch.models import scenes
+    from skybox_rt_tpu_torch.rt import tracer
+    verts, faces, colors = scenes.sphere_field(copies=9, subdiv=5)
+    scene = tracer.RTScene(verts=verts, faces=faces, colors=colors,
+                           reflectivity=0.35)
+    cam = tracer.Camera(eye=(0.0, 2.5, 9.5), look_at=(0.0, -0.4, 0.0),
+                        fov_y_deg=55.0)
+    return scene, cam
+
+
+def rt_phases(dev, card) -> list:
+    """Phases 7 to 10; returns the two RT kernels' entries of the kernels
+    line."""
+    from skybox_rt_tpu_torch.geom import cgltrace
+    from skybox_rt_tpu_torch.models import scenes
+    from skybox_rt_tpu_torch.ops import cuda_rt
+    from skybox_rt_tpu_torch.rt import bvh as bvh_mod
+    from skybox_rt_tpu_torch.rt import intersect, tracer, wavefront
+
+    def on_card(a):
+        return None if a is None else torch.as_tensor(a, device=dev)
+
+    def make_blocks(verts, faces, bvh, tri_block):
+        tri = intersect.triangle_arrays(on_card(verts),
+                                        on_card(np.asarray(faces, np.int64)))
+        return cuda_rt.prepare_bvh_blocks(
+            *tri, bvh_mod.build_block_set(bvh, tri_block=tri_block))
+
+    def compare(kind, o, d, tm, blocks, stats=None):
+        """Kernel against plain version on one query; raises on a
+        mismatch.  Returns (max |diff| of t/u/v, rays not bit-equal,
+        kernel outputs, plain seconds)."""
+        if kind == "any":
+            got = cuda_rt.any_hit_bvh(o, d, blocks, t_max=tm)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = cuda_rt.any_hit_bvh_reference(o, d, blocks, tm,
+                                                 stats=stats)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            if got.dtype != torch.bool or not torch.equal(got, want):
+                raise AssertionError(
+                    f"any_hit_bvh != plain version on "
+                    f"{int((got != want).sum())} of {got.numel()} rays")
+            return 0.0, 0, got, plain_s
+        got = cuda_rt.closest_hit_bvh(o, d, blocks, t_max=tm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = cuda_rt.closest_hit_bvh_reference(o, d, blocks, tm,
+                                                 stats=stats)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if got[0].dtype != torch.int32 or not torch.equal(got[0], want[0]):
+            raise AssertionError(
+                f"closest_hit_bvh prims != plain version on "
+                f"{int((got[0] != want[0]).sum())} of {got[0].numel()} rays")
+        hit = got[0] >= 0
+        if not bool(torch.isinf(got[1][~hit]).all()):
+            raise AssertionError("a miss with finite t")
+        err, inexact = 0.0, torch.zeros_like(hit)
+        for g, w in zip(got[1:], want[1:]):
+            g, w = torch.where(hit, g, 0.0), torch.where(hit, w, 0.0)
+            diff = (g - w).abs()
+            if bool((diff > 1e-6 * w.abs()).any()):
+                raise AssertionError(
+                    f"closest_hit_bvh t/u/v beyond rtol 1e-6 of the plain "
+                    f"version: max |diff| {float(diff.max())}")
+            err = max(err, float(diff.max()))
+            inexact |= g != w
+        return err, int(inexact.sum()), got, plain_s
+
+    # 7a. the small check scenes, whole
+    err, inexact, cases = 0.0, 0, 0
+    for name in sorted(scenes.BVH_CHECK_SCENES):
+        verts, faces, tri_block, queries = scenes.bvh_check_queries(name)
+        blocks = make_blocks(verts, faces, bvh_mod.build(verts, faces),
+                             tri_block)
+        for kind, o, d, tm in queries:
+            e, n, _, _ = compare(kind, on_card(o), on_card(d),
+                                 on_card(tm) if kind == "closest" else
+                                 (tm if np.ndim(tm) == 0 else on_card(tm)),
+                                 blocks)
+            err, inexact, cases = max(err, e), inexact + n, cases + 1
+    small = {"cases": cases, "max_abs_err": err, "rays_not_bit_equal": inexact}
+
+    # the full-width scene, built once for every later phase
+    scene, cam = northstar_scene()
+    verts, faces = scene.verts, scene.faces
+    t0 = time.perf_counter()
+    scene.finalize()
+    bvh_build_s = time.perf_counter() - t0
+    kw = dict(bounces=2, shadows=True)
+    cfg1024 = tracer.RTConfig(width=RT_SIZE, height=RT_SIZE, **kw)
+    cfg256 = tracer.RTConfig(width=SIZE, height=SIZE, **kw)
+    if tracer.resolve_engine(cfg1024, faces.shape[0]) != "pallas_bvh":
+        raise AssertionError("the full-width scene must take pallas_bvh")
+    t0 = time.perf_counter()
+    blocks = make_blocks(verts, faces, scene.bvh, tracer.BVH_TRI_BLOCK)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frame1024, (o1024, d1024) = tracer.make_frame_fn(scene, cam, cfg1024)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if o1024.device != blocks["tri"].device:
+        raise AssertionError("make_frame_fn did not default to the card")
+
+    def launch_bound(kind, o, d, tm, tri_tests, slab_pass):
+        """Bound of one launch: rays, records, counts and boxes read once,
+        the outputs (prim, t, u, v, or one occlusion byte a ray) written
+        once, against the tests the plain version counted."""
+        R = o.shape[0]
+        moved = nbytes(o, d, tm, blocks["tri"], blocks["bcnt"],
+                       blocks["aabb"])
+        moved += R if kind == "any" else 16 * R + nbytes(blocks["s2p"])
+        return bound(moved, tri_tests * MT_OPS + slab_pass * SLAB_OPS)
+
+    # 7b. the six launches of the real frame, captured from trace_rays
+    launches = []
+
+    def rec_closest(o, d, t_max=float("inf")):
+        launches.append(("closest", o, d, None))
+        return cuda_rt.closest_hit_bvh(o, d, blocks)
+
+    def rec_occluded(o, d, t_max):
+        tm = torch.full((o.shape[0],), t_max, dtype=torch.float32,
+                        device=dev)
+        launches.append(("any", o, d, tm))
+        return cuda_rt.any_hit_bvh(o, d, blocks, t_max=tm)
+
+    tracer.trace_rays(tracer.scene_shade_arrays(scene, cfg1024), cfg1024,
+                      rec_closest, rec_occluded, scene.reflectivity,
+                      o1024, d1024)
+    kinds = [k for k, _, _, _ in launches]
+    if kinds != ["closest", "any"] * 3:
+        raise AssertionError(f"launch classes {kinds}")
+    names = ["primary", "primary_shadow", "bounce1", "bounce1_shadow",
+             "bounce2", "bounce2_shadow"]
+    classes = {}
+    for name, (kind, o, d, tm) in zip(names, launches):
+        R = o.shape[0]
+        stride = max(1, R // RT_SAMPLE)
+        sl = slice(0, stride * RT_SAMPLE, stride)
+        os_, ds_ = o[sl].contiguous(), d[sl].contiguous()
+        tms = None if tm is None else tm[sl].contiguous()
+        if os_.shape[0] < RT_SAMPLE:
+            raise AssertionError(f"{name}: only {os_.shape[0]} rays")
+        stats = {}
+        e, n, got, plain_s = compare(kind, os_, ds_, tms, blocks, stats)
+        parked = int((os_[:, 0] > 1e7).sum())
+        found = got if kind == "any" else got[0] >= 0
+        classes[name] = {
+            "kind": kind, "launch_rays": R, "sample_rays": os_.shape[0],
+            "parked_in_sample": parked, "hits_in_sample": int(found.sum()),
+            "max_abs_err": e, "rays_not_bit_equal": n,
+            "tri_tests_per_ray": stats["tri_tests"] / os_.shape[0],
+            "blocks_entered_per_ray": stats["slab_pass"] / os_.shape[0],
+            "plain_ms_sample": plain_s * 1e3,
+            # the sample's counts scaled to the launch's rays
+            "bound": launch_bound(kind, o, d, tm,
+                                  stats["tri_tests"] * R / os_.shape[0],
+                                  stats["slab_pass"] * R / os_.shape[0])}
+        err = max(err, e)
+    for name in ("bounce1", "bounce1_shadow"):
+        if classes[name]["parked_in_sample"] == 0:
+            raise AssertionError(f"{name}: no parked ray in the sample")
+
+    # 7c. the whole primary and primary-shadow launches: the shapes of the
+    # kernels line
+    entries = []
+    for (kind, o, d, tm), name, src_line in (
+            (launches[0], "rt_closest_hit_bvh", 1102),
+            (launches[1], "rt_any_hit_bvh", 1528)):
+        stats = {}
+        e, n, got, plain_s = compare(kind, o, d, tm, blocks, stats)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "skybox_rt_tpu_torch/csrc/rt_bvh.cu",
+            "replaces": f"skybox_rt_tpu/ops/pallas_rt.py:{src_line}",
+            "launches": None, "max_abs_err": e, "ms": None,
+            "plain_ms": plain_s * 1e3,
+            **launch_bound(kind, o, d, tm, stats["tri_tests"],
+                           stats["slab_pass"]),
+            "library_ms": None,     # no single PyTorch call computes this
+            "rays": o.shape[0], "rays_not_bit_equal": n,
+            "tri_tests_per_ray": stats["tri_tests"] / o.shape[0]})
+        err = max(err, e)
+    phase("rt_kernel_vs_plain", small=small, triangles=int(faces.shape[0]),
+          blocks=blocks["num_blocks"], pyramid=list(blocks["level_counts"]),
+          classes=classes, equal=True, max_abs_err=err)
+
+    # 8. the 256x256 frame against the committed JAX golden
+    with np.load(os.path.join(cgltrace.DATA_DIR,
+                              "rt_northstar_256.npz")) as z:
+        golden = {k: z[k] for k in z.files}
+    if int(golden["num_triangles"]) != faces.shape[0]:
+        raise AssertionError("the golden was made from another scene")
+    frame256, _ = tracer.make_frame_fn(scene, cam, cfg256)
+    perm, _ = wavefront.tile_order_perm(SIZE, SIZE, 32)
+    cuda_rt.reset_launch_counts()
+    img256 = frame256(golden["o"][perm], golden["d"][perm])
+    torch.cuda.synchronize()
+    counts256 = (cuda_rt.closest_launch_count, cuda_rt.anyhit_launch_count)
+    if img256.device != blocks["tri"].device or counts256 != (3, 3):
+        raise AssertionError(f"256 frame: device {img256.device}, launches "
+                             f"{counts256}, expected (3, 3) on the card")
+    img256 = img256.cpu().numpy()
+    diff = np.abs(img256 - golden["image"])
+    within = float((diff <= 2e-5).mean())
+    if not (diff.max() <= 1e-4 and within >= 0.999):
+        raise AssertionError(f"256 frame != JAX golden: max |diff| "
+                             f"{diff.max()}, within 2e-5: {within}")
+    hit256 = img256[..., :3].sum(-1) > 0
+    phase("rt_frame_256", size=SIZE, launches=counts256,
+          max_abs_diff=float(diff.max()),
+          values_beyond_2e5=int((diff > 2e-5).sum()), values=int(diff.size),
+          hit_fraction=float(hit256.mean()),
+          mean_rgb=[float(x) for x in img256[..., :3].mean((0, 1))])
+
+    # 9. the full-width frame: the main path
+    cuda_rt.reset_launch_counts()
+    img = frame1024(o1024, d1024)
+    torch.cuda.synchronize()
+    counts = (cuda_rt.closest_launch_count, cuda_rt.anyhit_launch_count)
+    if counts != (3, 3):
+        raise AssertionError(f"1024 frame launched {counts}, expected (3, 3)")
+    if tuple(img.shape) != (RT_SIZE, RT_SIZE, 4) or img.dtype != torch.float32:
+        raise AssertionError(f"1024 frame is {tuple(img.shape)} {img.dtype}")
+    if not bool(torch.isfinite(img).all()) or not bool((img[..., 3] == 1).all()):
+        raise AssertionError("1024 frame: a value is not finite or alpha != 1")
+    perm1024, _ = wavefront.tile_order_perm(RT_SIZE, RT_SIZE, 32)
+    stride = RT_SIZE * RT_SIZE // RT_SAMPLE
+    sample = on_card(perm1024.astype(np.int64))[::stride]
+    hit_img = img.reshape(-1, 4)[sample][:, :3].sum(-1) > 0
+    prim_plain = cuda_rt.closest_hit_bvh_reference(
+        o1024[::stride].contiguous(), d1024[::stride].contiguous(), blocks)[0]
+    if not torch.equal(hit_img, prim_plain >= 0):
+        raise AssertionError("1024 frame: primary hit mask != plain version")
+    hit1024 = img[..., :3].sum(-1) > 0
+    phase("rt_frame_1024", rays=RT_SIZE * RT_SIZE, triangles=int(faces.shape[0]),
+          launches=counts, finite=True, hit_mask_sample=int(sample.numel()),
+          hit_fraction=float(hit1024.float().mean()),
+          mean_rgb=[float(x) for x in img[..., :3].mean((0, 1))],
+          hit_fraction_256=float(hit256.mean()))
+    entries[0]["launches"], entries[1]["launches"] = counts
+
+    # 10. timing (printed, not judged)
+    timing = {}
+    for name, (kind, o, d, tm) in zip(names, launches):
+        if kind == "any":
+            ms = median_ms(lambda: cuda_rt.any_hit_bvh(o, d, blocks,
+                                                       t_max=tm))
+        else:
+            ms = median_ms(lambda: cuda_rt.closest_hit_bvh(o, d, blocks))
+        timing[name] = {"kernel_ms": ms, "rays": o.shape[0],
+                        "mrays_per_s": o.shape[0] / ms / 1e3,
+                        "plain_ms_sample": classes[name]["plain_ms_sample"]}
+    # ms and bound_ms are those of the widest launch (the primary one);
+    # frame_ms and frame_bound_ms sum the kernel's three launches of a frame
+    for entry, first in zip(entries, ("primary", "primary_shadow")):
+        mine = [n for n in names if classes[n]["kind"] == classes[first]["kind"]]
+        entry["ms"] = timing[first]["kernel_ms"]
+        entry["launch_ms"] = {n: timing[n]["kernel_ms"] for n in mine}
+        entry["frame_ms"] = sum(timing[n]["kernel_ms"] for n in mine)
+        entry["frame_bound_ms"] = sum(classes[n]["bound"]["bound_ms"]
+                                      for n in mine)
+    frame_ms = median_ms(lambda: frame1024(o1024, d1024))
+    frame256_ms = median_ms(lambda: frame256(golden["o"][perm],
+                                             golden["d"][perm]))
+    kernels_ms = sum(t["kernel_ms"] for t in timing.values())
+    phase("rt_timing", card=card, reps=REPS, launches=timing,
+          frame_1024={"ms": frame_ms, "kernels_ms": kernels_ms,
+                      "kernel_share": kernels_ms / frame_ms,
+                      "mrays_per_s": RT_SIZE * RT_SIZE * 6 / frame_ms / 1e3},
+          frame_256_ms=frame256_ms,
+          host_s={"bvh_build_sah": bvh_build_s,
+                  "block_set_and_upload": prepare_s,
+                  "make_frame_fn_1024": setup_s})
+    return entries
 
 
 def main() -> int:
@@ -243,14 +613,29 @@ def main() -> int:
         p_ms = median_ms(lambda: cuda_raster.visibility_tiles_reference(
             rs, *args, tls, fused=True), reps=5, warmup=1)
         T, M = b.tile_pids.shape
+        # each input read once, each of the four fused outputs written once;
+        # one prim step a pixel for every real entry of tile_pids, and the
+        # covered pixels' extra work for every step the plain version's
+        # coverage mask holds
+        steps = int((args[2] >= 0).sum()) << (2 * tls)
+        covered = int(sum(cov.sum() for _, cov, *_ in cuda_raster.prim_steps(
+            rs, *args, tls, need_grad=False)))
         timings[label] = {"kernel_ms": k_ms, "plain_ms": p_ms, "T": T,
                           "M": M, "pixels": T << (2 * tls),
-                          "kernel_mpix_per_s": (T << (2 * tls)) / k_ms / 1e3}
+                          "kernel_mpix_per_s": (T << (2 * tls)) / k_ms / 1e3,
+                          "steps": steps, "covered_steps": covered,
+                          "bound": bound(
+                              nbytes(*args) + 4 * nbytes(args[4]),
+                              covered * RASTER_COVERED_FLOAT_OPS,
+                              steps * RASTER_STEP_INT_OPS
+                              + covered * RASTER_COVERED_INT_OPS)}
     frame_ms = median_ms(lambda: frame(arrays))
     timings["frame_256"] = {
         "ms": frame_ms, "draws": draws,
         "mpix_per_s": SIZE * SIZE * draws / frame_ms / 1e3}
     phase("timing", card=card, reps=REPS, **timings)
+
+    rt_entries = rt_phases(dev, card)
 
     print(card)
     p256 = timings["pass1_256"]
@@ -259,7 +644,10 @@ def main() -> int:
         "source": "skybox_rt_tpu_torch/csrc/raster_visibility.cu",
         "replaces": "skybox_rt_tpu/ops/pallas_raster.py:63",
         "launches": launches, "max_abs_err": err,
-        "ms": p256["kernel_ms"], "plain_ms": p256["plain_ms"]}]}))
+        "ms": p256["kernel_ms"], "plain_ms": p256["plain_ms"],
+        **p256["bound"],
+        "library_ms": None,     # no single PyTorch call computes this
+        }] + rt_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,10 +2,13 @@
 
 The sources are compiled at first use with ``nvcc`` into one shared library
 with a plain C interface, loaded with ctypes: no PyTorch headers, so a build
-takes seconds.  The library lands in ``skybox_rt_tpu_torch/_build/`` and is
-keyed by a hash of the sources and flags, so an edited source rebuilds.
-Flags keep IEEE float32 division and no FMA contraction, which the exact-int
-raster path needs (csrc/raster_visibility.cu); fast math is never used.
+takes seconds.  Each source is compiled by an ``nvcc`` of its own, all
+started together, and the objects are linked into one library.  It lands in
+``skybox_rt_tpu_torch/_build/`` and is keyed by a hash of the sources and
+flags, so an edited source rebuilds.  Flags keep IEEE float32 division and no
+FMA contraction, which the exact-int raster path (csrc/raster_visibility.cu)
+and the ray queries' agreement with their plain versions (csrc/rt_bvh.cu)
+need; fast math is never used.
 """
 from __future__ import annotations
 
@@ -25,13 +28,20 @@ LIB_NAME = "libskybox_torch_kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-prec-div=true", "-fmad=false", "-Xptxas", "-v",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# skybox_visibility_tiles: 11 tensor pointers, 21 ints, the stream
+_F = ctypes.c_float
 _SIGNATURES = {
+    # 11 tensor pointers, 21 ints, the stream
     "skybox_visibility_tiles": [_P] * 11 + [_I] * 21 + [_P],
+    # o d tmax tri bcnt s2p aabb, host level_off level_cnt, num_levels
+    # tri_block, t_min, R, prim t u v, the stream
+    "skybox_rt_closest_hit_bvh": [_P] * 9 + [_I, _I, _F, _I] + [_P] * 5,
+    # o d tmax tri bcnt aabb, host level_off level_cnt, num_levels
+    # tri_block, t_min, R, occ, the stream
+    "skybox_rt_any_hit_bvh": [_P] * 8 + [_I, _I, _F, _I] + [_P] * 2,
 }
 
 _lock = threading.Lock()
@@ -67,23 +77,45 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile ``csrc/*.cu`` unless the hashed library exists; returns its
-    path.  nvcc's report (registers, shared memory, spills from -Xptxas -v)
-    is kept beside it as ``<lib>.log``.  Raises with nvcc's stderr on
-    failure."""
+    path.  One nvcc per source runs at the same time, then one links the
+    objects.  nvcc's reports (registers, stack frame, spills from
+    -Xptxas -v) are kept beside the library as ``<lib>.log``, the link
+    command on the first line.  Raises with nvcc's stderr on failure."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        sys.stderr.write(res.stderr)
-        raise RuntimeError(f"nvcc failed (rc {res.returncode}): "
-                           f"{' '.join(cmd)}\n{res.stderr}")
+    nvcc = _nvcc()
+    tmp = f"{out}.{os.getpid()}"
+    jobs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], None
+    for cmd, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd, stderr)
+    link = [nvcc, "-shared", "-o", f"{tmp}.so", *(obj for _, obj, _ in jobs)]
+    if failed is None:
+        res = subprocess.run(link, capture_output=True, text=True)
+        log.insert(0, " ".join(link) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed = (res.returncode, link, res.stderr)
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed is not None:
+        rc, cmd, stderr = failed
+        sys.stderr.write(stderr)
+        raise RuntimeError(f"nvcc failed (rc {rc}): {' '.join(cmd)}\n"
+                           f"{stderr}")
     with open(out + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    os.replace(tmp, out)
+        f.write("".join(log))
+    os.replace(f"{tmp}.so", out)
     return out
 
 

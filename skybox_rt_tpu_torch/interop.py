@@ -1,7 +1,9 @@
 """Carry state from the JAX package into the port.
 
 The renderer's "weights" are the trace, the binned arrays, the resolved
-render state and the texel table.  These helpers rebuild the port's objects
+render state and the texel table; the ray tracer's are the scene, its BVH,
+the treelet blocks, the camera and the config.  These helpers rebuild the
+port's objects
 from the JAX package's by reading attributes and numpy arrays only — this
 module never imports jax or skybox_rt_tpu — so a test can feed both
 packages exactly the same state.
@@ -19,6 +21,9 @@ from .geom import binning, cgltrace
 from .om.blend import BlendState
 from .om.depth_stencil import DepthStencilState
 from .om.merger import OMState
+from .ops import cuda_rt
+from .rt import bvh as bvh_mod
+from .rt import tracer
 from .texture.sampler import TextureState
 
 
@@ -82,3 +87,69 @@ def texels_from_reference(arr, device=None) -> torch.Tensor:
     """``np.asarray`` of a JAX texel table (uint32, flat or (N, 4) quad)
     -> the port's int32-pattern tensor."""
     return fixed.from_numpy_u32(np.asarray(arr), device=device)
+
+
+def _np_or_none(a, dtype):
+    return None if a is None else np.array(a, dtype)
+
+
+def bvh_from_reference(obj) -> bvh_mod.BVH:
+    """A JAX-package rt.bvh.BVH -> the port's: the seven node arrays, the
+    leaf size and, where already built, the five preorder arrays."""
+    return bvh_mod.BVH(
+        node_min=np.array(obj.node_min, np.float32),
+        node_max=np.array(obj.node_max, np.float32),
+        node_left=np.array(obj.node_left, np.int32),
+        node_right=np.array(obj.node_right, np.int32),
+        node_first=np.array(obj.node_first, np.int32),
+        node_count=np.array(obj.node_count, np.int32),
+        prim_order=np.array(obj.prim_order, np.int32),
+        leaf_size=int(obj.leaf_size),
+        pre_min=_np_or_none(obj.pre_min, np.float32),
+        pre_max=_np_or_none(obj.pre_max, np.float32),
+        pre_first=_np_or_none(obj.pre_first, np.int32),
+        pre_count=_np_or_none(obj.pre_count, np.int32),
+        pre_escape=_np_or_none(obj.pre_escape, np.int32))
+
+
+def rt_scene_from_reference(obj) -> tracer.RTScene:
+    """A JAX-package rt.tracer.RTScene -> the port's, arrays copied and the
+    built BVH (if any) carried over."""
+    return tracer.RTScene(
+        verts=np.array(obj.verts, np.float32),
+        faces=np.array(obj.faces),
+        colors=np.array(obj.colors, np.float32),
+        normals=_np_or_none(obj.normals, np.float32),
+        uvs=_np_or_none(obj.uvs, np.float32),
+        texture=_np_or_none(obj.texture, np.float32),
+        reflectivity=float(obj.reflectivity),
+        bvh=None if obj.bvh is None else bvh_from_reference(obj.bvh),
+        bvh_method=str(obj.bvh_method))
+
+
+def bvh_blocks_from_reference(blocks, device) -> dict:
+    """The dict of the JAX package's ``pallas_rt.prepare_bvh_blocks`` ->
+    the port's ``ops.cuda_rt.prepare_bvh_blocks`` dict on ``device``: the
+    nine record floats without the 128-lane padding and the AABB embedded
+    in row 0, the block counts, the slot -> prim map and the AABB pyramid."""
+    return cuda_rt.pack_blocks(
+        np.asarray(blocks["tri"])[:, :9].astype(np.float32),
+        np.array(blocks["bcnt"], np.int32),
+        np.array(blocks["s2p"], np.int32),
+        [np.array(a, np.float32) for a in blocks["levels"]],
+        int(blocks["tri_block"]), int(blocks["num_prims"]), device)
+
+
+def camera_from_reference(obj) -> tracer.Camera:
+    return tracer.Camera(
+        eye=tuple(float(x) for x in obj.eye),
+        look_at=tuple(float(x) for x in obj.look_at),
+        up=tuple(float(x) for x in obj.up),
+        fov_y_deg=float(obj.fov_y_deg))
+
+
+def rt_config_from_reference(obj) -> tracer.RTConfig:
+    """A JAX-package RTConfig -> the port's, field by field.  An engine name
+    the port has no kernels for is kept, and fails where the intersectors
+    are made."""
+    return _copy_fields(tracer.RTConfig, obj)

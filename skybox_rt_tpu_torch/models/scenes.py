@@ -1,8 +1,10 @@
-"""Procedural scene builders for the synthetic trace generator.
+"""Procedural scene builders for the synthetic trace generator and the
+ray-tracing path.
 
-Counterpart of the parts of skybox_rt_tpu.models.scenes that
-models/make_synth_trace.py uses, copied as is.  Everything is float32 numpy
-on the host.
+Counterpart of skybox_rt_tpu.models.scenes, copied as is; :func:`multi_sphere`
+and :func:`aimed_rays` are the scene and ray makers of the BVH kernels'
+checks (the CPU tests and chip_smoke.py share them).  Everything is float32
+numpy on the host.
 """
 from __future__ import annotations
 
@@ -61,7 +63,7 @@ def icosphere(subdiv=2, radius=1.0):
 
 
 def mesh_grid_plane(n=8, y=-1.0, half=4.0):
-    """Ground plane triangulated into a grid."""
+    """Ground plane triangulated into a grid (for RT shadows/bounces)."""
     lin = np.linspace(-half, half, n + 1, dtype=F32)
     xx, zz = np.meshgrid(lin, lin)
     verts = np.stack([xx, np.full_like(xx, y), zz], -1).reshape(-1, 3)
@@ -74,3 +76,102 @@ def mesh_grid_plane(n=8, y=-1.0, half=4.0):
             d = c + 1
             faces += [(a, b, c), (b, d, c)]
     return verts.astype(F32), np.array(faces, np.int32)
+
+
+def sphere_field(copies=9, subdiv=5, spacing=2.4, ground=True, seed=0):
+    """Multi-object RT scene: a grid of icospheres over a ground plane.
+    copies=9 @ subdiv=5 -> 184,320 sphere tris + a 512-tri plane.
+
+    Returns (verts (V,3) f32, faces (P,3) i32, colors (V,4) f32)."""
+    rng = np.random.default_rng(seed)
+    sv, sf = icosphere(subdiv=subdiv, radius=0.9)
+    grid = int(np.ceil(np.sqrt(copies)))
+    vs, fs, cs = [], [], []
+    off = 0
+    for i in range(copies):
+        dx = (i % grid - (grid - 1) / 2) * spacing
+        dz = (i // grid - (grid - 1) / 2) * spacing
+        vs.append(sv + np.asarray([dx, 0.0, dz], F32))
+        fs.append(sf + off)
+        tint = rng.uniform(0.3, 1.0, size=3).astype(F32)
+        cs.append(np.concatenate(
+            [np.tile(tint, (sv.shape[0], 1)),
+             np.ones((sv.shape[0], 1), F32)], 1))
+        off += sv.shape[0]
+    if ground:
+        gv, gf = mesh_grid_plane(n=16, y=-1.0,
+                                 half=spacing * (grid + 1) / 2)
+        vs.append(gv)
+        fs.append(gf + off)
+        cs.append(np.tile(np.asarray([[0.7, 0.7, 0.75, 1.0]], F32),
+                          (gv.shape[0], 1)))
+    return (np.concatenate(vs).astype(F32),
+            np.concatenate(fs).astype(np.int32),
+            np.concatenate(cs).astype(F32))
+
+
+def multi_sphere(n=4, subdiv=2, seed=5):
+    """n icospheres of seeded radius and offset, centred on their mean:
+    (verts (V,3) f32, faces (P,3) i64).  Cuts into many small BVH blocks."""
+    rng = np.random.default_rng(seed)
+    vs, fs = [], []
+    off = 0
+    for _ in range(n):
+        v, f = icosphere(subdiv=subdiv, radius=0.4 + 0.2 * rng.random())
+        v = v + rng.normal(size=(1, 3)) * 1.2
+        vs.append(v.astype(F32))
+        fs.append(f + off)
+        off += v.shape[0]
+    v = np.concatenate(vs)
+    return ((v - v.mean(0, keepdims=True)).astype(F32),
+            np.concatenate(fs).astype(np.int64))
+
+
+def aimed_rays(R, seed=3, aimed=True):
+    """R seeded unit rays from |o| ~ 3, aimed at the origin with jitter (or
+    in random directions): (o, d) float32 (R, 3)."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(R, 3)).astype(F32) * 3.0
+    d = (-o if aimed else 0.0) + rng.normal(size=(R, 3)).astype(F32) * 0.3
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+# The scenes the BVH-block ray queries are checked on, by the CPU tests
+# against the JAX package and by chip_smoke.py on the card:
+# name -> (multi_sphere arguments, tri_block, rays, ray seed)
+BVH_CHECK_SCENES = {
+    "multi4_tb32": (dict(n=4, subdiv=2), 32, 1500, 31),
+    "multi6_tb16": (dict(n=6, subdiv=2, seed=11), 16, 1200, 37),
+    "multi3_tb32_parked": (dict(n=3, subdiv=2, seed=13), 32, 600, 41),
+    "multi4_tb32_anyhit": (dict(n=4, subdiv=2, seed=19), 32, 900, 47),
+}
+
+
+def parked(o, d, every):
+    """Copies of o, d with every `every`-th ray parked (origin 3e7,
+    direction 0.57735, the tracer's dead-ray convention), and the mask."""
+    o, d = o.copy(), d.copy()
+    park = np.arange(o.shape[0]) % every == 0
+    o[park] = 3e7
+    d[park] = 0.57735
+    return o, d, park
+
+
+def bvh_check_queries(name):
+    """(verts, faces, tri_block, queries) of a check scene; queries is a
+    list of (kind, o, d, t_max): kind "closest" with t_max None or (R,),
+    kind "any" with t_max a number or (R,)."""
+    kw, tri_block, R, seed = BVH_CHECK_SCENES[name]
+    verts, faces = multi_sphere(**kw)
+    o, d = aimed_rays(R, seed=seed)
+    if name == "multi3_tb32_parked":
+        op, dp, _ = parked(o, d, 3)
+        queries = [("closest", op, dp, np.full((R,), 2.5, F32))]
+    elif name == "multi4_tb32_anyhit":
+        op, dp, _ = parked(o, d, 4)
+        queries = [("any", o, d, 2.0),
+                   ("any", op, dp, (np.arange(R) % 3 + 1).astype(F32))]
+    else:
+        queries = [("closest", o, d, None)]
+    return verts, faces, tri_block, queries

@@ -21,6 +21,7 @@ import torch
 from ..core import constants as C
 from ..core import fixed
 from ..core import state as state_mod
+from ..core.device import resolve_device
 from ..geom import binning, cgltrace
 from ..ops import deferred as deferred_mod
 from ..texture import sampler as sampler_mod
@@ -103,9 +104,9 @@ def clear_framebuffers(width, height, tile_logsize, device):
 def render_trace(trace: cgltrace.CGLTrace, width: int, height: int,
                  tile_logsize: int = C.RASTER_TILE_LOGSIZE,
                  start_draw: int = 0, end_draw: int = 2**31,
-                 mode: str = "immediate", device="cpu") -> np.ndarray:
-    """Render a full trace on ``device``; returns the (H, W) uint32 ARGB
-    framebuffer.
+                 mode: str = "immediate", device=None) -> np.ndarray:
+    """Render a full trace on ``device`` (None: the CUDA card, see
+    core.device); returns the (H, W) uint32 ARGB framebuffer.
 
     Blended-draw slot counts are measured on the first render of a (trace,
     size) and cached on the trace object; later frames dispatch with the
@@ -114,7 +115,7 @@ def render_trace(trace: cgltrace.CGLTrace, width: int, height: int,
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    device = torch.device(device)
+    device = resolve_device(device)
     deferred_mode = mode == "deferred"
     if deferred_mode:
         cache = trace.__dict__.setdefault("_blend_k_cache", {})
@@ -152,11 +153,12 @@ def render_trace(trace: cgltrace.CGLTrace, width: int, height: int,
 
 def prepare_drawcalls(trace: cgltrace.CGLTrace, width: int, height: int,
                       tile_logsize: int = C.RASTER_TILE_LOGSIZE,
-                      device="cpu"):
+                      device=None):
     """Host-side frame setup: bin every drawcall and resolve its state.
     Returns a list of (RenderState, texels, BinnedDrawcall), texels on
-    ``device`` (a 1-element dummy for untextured draws)."""
-    device = torch.device(device)
+    ``device`` (None: the CUDA card; a 1-element dummy for untextured
+    draws)."""
+    device = resolve_device(device)
     draws = []
     for dc in trace.drawcalls:
         resolved = _resolve_draw(trace, dc, width, height, tile_logsize,
@@ -172,8 +174,9 @@ def prepare_drawcalls(trace: cgltrace.CGLTrace, width: int, height: int,
 
 def compile_frame(trace: cgltrace.CGLTrace, width: int, height: int,
                   tile_logsize: int = C.RASTER_TILE_LOGSIZE,
-                  mode: str = "deferred", device="cpu"):
-    """Prepare a whole frame once, for repeated rendering on ``device``.
+                  mode: str = "deferred", device=None):
+    """Prepare a whole frame once, for repeated rendering on ``device``
+    (None: the CUDA card).
 
     Draws are binned once, their arrays uploaded once, and blended draws'
     slot counts measured once with one deferred frame (exact: every call
@@ -183,7 +186,7 @@ def compile_frame(trace: cgltrace.CGLTrace, width: int, height: int,
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    device = torch.device(device)
+    device = resolve_device(device)
     draws = prepare_drawcalls(trace, width, height, tile_logsize, device)
     arrays = tuple((texels, deferred_mod.device_arrays(b, device))
                    for _, texels, b in draws)

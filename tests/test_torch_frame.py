@@ -119,7 +119,7 @@ def test_draw_subsets(start, end):
     trace = cgltrace.load_trace(TRACE)
     for mode in ("deferred", "immediate"):
         got = driver.render_trace(trace, 256, 256, start_draw=start,
-                                  end_draw=end, mode=mode)
+                                  end_draw=end, mode=mode, device="cpu")
         np.testing.assert_array_equal(got, ref, err_msg=mode)
 
 
@@ -130,7 +130,7 @@ def test_non_square_non_tile_multiple():
                                              tile_logsize=4,
                                              mode="deferred"))
     got = driver.render_trace(cgltrace.load_trace(TRACE), 100, 75,
-                              tile_logsize=4, mode="deferred")
+                              tile_logsize=4, mode="deferred", device="cpu")
     assert got.shape == (75, 100)
     np.testing.assert_array_equal(got, ref)
 
@@ -144,7 +144,7 @@ def test_blend_k_cache_and_stale_hint():
 
     def render():
         return driver.render_trace(trace, 64, 64, start_draw=2, end_draw=2,
-                                   mode="deferred")
+                                   mode="deferred", device="cpu")
 
     ref = render()
     ks = trace._blend_k_cache[key]
@@ -158,7 +158,7 @@ def test_measure_drawcall_counts_match_jax():
     jt = _jax_trace()
     pt = cgltrace.load_trace(TRACE)
     jdraws = jax_driver.prepare_drawcalls(jt, 256, 256)
-    pdraws = driver.prepare_drawcalls(pt, 256, 256)
+    pdraws = driver.prepare_drawcalls(pt, 256, 256, device="cpu")
     jfbd = jnp.full((256, 256), jax_driver.CLEAR_DEPTH, jnp.uint32)
     jfbc = jnp.full((256, 256), jax_driver.CLEAR_COLOR, jnp.uint32)
     pfbc, pfbd = driver.clear_framebuffers(256, 256, 5, "cpu")

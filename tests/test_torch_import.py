@@ -1,5 +1,6 @@
 """The port stands without JAX: importing every module of
-skybox_rt_tpu_torch and rendering a frame on the CPU loads neither jax nor
+skybox_rt_tpu_torch and rendering a raster and a ray-traced frame on the CPU
+loads neither jax nor
 skybox_rt_tpu, and chip_smoke.py refuses to run without a card."""
 import importlib.util
 import json
@@ -29,11 +30,21 @@ from skybox_rt_tpu_torch.ref import driver
 trace = cgltrace.load_trace(cgltrace.trace_path("synth_draw3d"))
 fb = driver.render_trace(trace, 32, 32, start_draw=2, end_draw=3,
                          mode="deferred", device="cpu")
+from skybox_rt_tpu_torch.models import scenes
+from skybox_rt_tpu_torch.rt import tracer
+verts, faces = scenes.icosphere(subdiv=1)
+scene = tracer.RTScene(verts=verts, faces=faces,
+                       colors=scenes.F32(1) * (verts[:, :1] * 0 + [1, 1, 1, 1]),
+                       reflectivity=0.5)
+img = tracer.render(scene, tracer.Camera(eye=(0, 0.5, 3), look_at=(0, 0, 0)),
+                    tracer.RTConfig(width=16, height=16, engine="brute",
+                                    bounces=1, shadows=True), device="cpu")
 loaded = sorted(k for k in sys.modules
                 if k == "jax" or k.startswith(("jax.", "jaxlib"))
                 or k == "skybox_rt_tpu" or k.startswith("skybox_rt_tpu."))
 print(json.dumps({"loaded": loaded, "shape": list(fb.shape),
-                  "dtype": str(fb.dtype)}))
+                  "dtype": str(fb.dtype), "rt_shape": list(img.shape),
+                  "rt_hits": int((img[..., :3].sum(-1) > 0).sum())}))
 """
 
 
@@ -54,13 +65,16 @@ def probe():
 
 def test_every_module_listed():
     for m in ("core.fixed", "ops.cuda_raster", "ops.deferred", "ref.driver",
-              "interop", "_build", "models.make_synth_trace"):
+              "interop", "_build", "models.make_synth_trace", "core.device",
+              "rt.tracer", "rt.bvh", "rt.intersect", "rt.wavefront",
+              "ops.cuda_rt", "diff.pipeline"):
         assert f"skybox_rt_tpu_torch.{m}" in MODULES
 
 
 def test_no_jax_after_import_and_render(probe):
     assert probe["loaded"] == []
     assert probe["shape"] == [32, 32] and probe["dtype"] == "uint32"
+    assert probe["rt_shape"] == [16, 16, 4] and probe["rt_hits"] > 20
 
 
 _BAD_IMPORT = re.compile(

@@ -48,7 +48,8 @@ def _seeded_ds(T, tls, seed):
 
 
 def _port_inputs(d, tls, device="cpu"):
-    rs, _, b = driver.prepare_drawcalls(_trace(), SIZE, SIZE, tls)[d]
+    rs, _, b = driver.prepare_drawcalls(_trace(), SIZE, SIZE, tls,
+                                        device=device)[d]
     arrs = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
             for a in (b.edges, b.attribs[:, 0], b.tile_pids, b.tile_xy)]
     fbd = _seeded_ds(b.tile_pids.shape[0], tls, seed=10 * d + tls)

@@ -1,0 +1,228 @@
+"""The BVH-block ray queries: the port's plain versions against the JAX
+package's Pallas kernels, and the CUDA kernels against the plain versions.
+
+``ops.cuda_rt.closest_hit_bvh_reference`` / ``any_hit_bvh_reference`` are
+held to ``pallas_rt.closest_hit_bvh`` / ``any_hit_bvh`` run as the JAX
+package's own tests run them on the CPU (``interpret=True``), on the scenes
+of tests/test_pallas_rt.py (multi-sphere, tri_block 32 and 16, per-ray t_max,
+parked rays, scalar and per-ray any-hit t_max), the blocks carried over with
+``interop.bvh_blocks_from_reference``.
+
+Tolerances.  Miss masks: equal.  t: rtol 1e-5.  u, v: atol 1e-4 where the
+prims agree: XLA's CPU code contracts multiply-adds and eager torch does not,
+and the cross products of glancing rays cancel, so each package is up to
+3.5e-5 from the float64 barycentrics on these scenes and up to 5e-5 from the
+other (measured); 1e-5, the JAX suite's bound between two JAX paths, does not
+hold across that divide.  Prims: the Pallas kernel keeps the first of equal-t
+hits in its worklist order, the port the lowest slot, so prims may differ on
+ties only: where they differ the two t agree to rtol 1e-5 and such rays are
+under 1 % of the hits (the JAX suite's own bound).  Occlusion: equal; a ray
+that differs must be a boundary case.
+
+The CUDA kernels against the plain versions run only on a card (marker
+``cuda``):  python -m pytest --noconftest -m cuda tests/test_torch_rt_kernels.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from skybox_rt_tpu_torch import interop
+from skybox_rt_tpu_torch.models import scenes
+from skybox_rt_tpu_torch.ops import cuda_rt
+from skybox_rt_tpu_torch.rt import bvh as bvh_mod
+from skybox_rt_tpu_torch.rt import intersect
+
+# small tensors: intra-op threads only contend with the other test workers
+torch.set_num_threads(1)
+
+SCENES = scenes.BVH_CHECK_SCENES
+
+
+def _port_blocks(name, device="cpu"):
+    """(tri arrays, blocks, queries) of a scene, built by the port alone."""
+    verts, faces, tri_block, queries = scenes.bvh_check_queries(name)
+    tri = intersect.triangle_arrays(torch.as_tensor(verts, device=device),
+                                    torch.as_tensor(faces, device=device))
+    bs = bvh_mod.build_block_set(bvh_mod.build(verts, faces),
+                                 tri_block=tri_block)
+    return tri, cuda_rt.prepare_bvh_blocks(*tri, bs), queries
+
+
+def _t(a, device="cpu"):
+    return None if a is None else torch.as_tensor(a, device=device)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_plain_matches_jax_pallas(name):
+    import jax.numpy as jnp
+
+    from skybox_rt_tpu.ops import pallas_rt
+    from skybox_rt_tpu.rt import bvh as jax_bvh
+    from skybox_rt_tpu.rt import intersect as jax_intersect
+
+    verts, faces, tri_block, queries = scenes.bvh_check_queries(name)
+    jtri = jax_intersect.triangle_arrays(jnp.asarray(verts),
+                                         jnp.asarray(faces))
+    jbs = jax_bvh.build_block_set(jax_bvh.build(verts, faces),
+                                  tri_block=tri_block)
+    jblocks = pallas_rt.prepare_bvh_blocks(*jtri, jbs)
+    blocks = interop.bvh_blocks_from_reference(jblocks, "cpu")
+    if name == "multi6_tb16":
+        assert len(blocks["levels"]) >= 2 and blocks["num_blocks"] > 64
+    # the blocks carried over equal the ones the port builds itself
+    _, own, _ = _port_blocks(name)
+    for k in ("tri", "bcnt", "s2p", "aabb"):
+        assert torch.equal(own[k], blocks[k]), k
+    assert own["level_counts"] == blocks["level_counts"]
+
+    for kind, oq, dq, tm in queries:
+        if kind == "any":
+            want = np.asarray(pallas_rt.any_hit_bvh(
+                jnp.asarray(oq), jnp.asarray(dq), jblocks,
+                t_max=tm if np.ndim(tm) == 0 else jnp.asarray(tm),
+                interpret=True))
+            got = cuda_rt.any_hit_bvh(_t(oq), _t(dq), blocks,
+                                      t_max=_t(tm)).numpy()
+            assert got.dtype == np.bool_
+            # equal; no count of differing rays is allowed (a ray that ever
+            # differs has to be shown to be a boundary case here)
+            np.testing.assert_array_equal(got, want)
+            assert 0 < got.mean() < 1
+            continue
+        p_w, t_w, u_w, v_w = (np.asarray(x) for x in pallas_rt.closest_hit_bvh(
+            jnp.asarray(oq), jnp.asarray(dq), jblocks,
+            t_max=None if tm is None else jnp.asarray(tm), interpret=True))
+        p, t, u, v = (x.numpy() for x in cuda_rt.closest_hit_bvh(
+            _t(oq), _t(dq), blocks, t_max=_t(tm)))
+        assert p.dtype == np.int32 and t.dtype == np.float32
+        np.testing.assert_array_equal(p < 0, p_w < 0)
+        hits = p >= 0
+        # a bounded query (t_max 2.5 from |o| ~ 3) hits rarely
+        assert hits.mean() > (0.2 if tm is None else 0.01)
+        assert np.isinf(t[~hits]).all() and not u[~hits].any()
+        np.testing.assert_allclose(t[hits], t_w[hits], rtol=1e-5)
+        same = hits & (p == p_w)
+        np.testing.assert_allclose(u[same], u_w[same], atol=1e-4)
+        np.testing.assert_allclose(v[same], v_w[same], atol=1e-4)
+        ties = hits & (p != p_w)
+        assert ties.sum() < 0.01 * hits.sum()
+        np.testing.assert_allclose(t[ties], t_w[ties], rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_plain_matches_bruteforce_and_any_block_order(name):
+    """The plain versions against the port's all-pairs oracle (same
+    arithmetic, so exactly equal), and over the blocks in reverse."""
+    tri, blocks, queries = _port_blocks(name)
+    rev = range(blocks["num_blocks"] - 1, -1, -1)
+    for kind, oq, dq, tm in queries:
+        oq, dq = _t(oq), _t(dq)
+        if kind == "any":
+            want = intersect.any_hit_bruteforce(oq, dq, *tri, t_max=_t(tm))
+            for order in (None, rev):
+                got = cuda_rt.any_hit_bvh_reference(oq, dq, blocks, _t(tm),
+                                                    block_order=order)
+                assert torch.equal(got, want)
+            continue
+        want = intersect.closest_hit_bruteforce(
+            oq, dq, *tri, t_max=np.inf if tm is None else _t(tm))
+        for order in (None, rev):
+            got = cuda_rt.closest_hit_bvh_reference(oq, dq, blocks, _t(tm),
+                                                    block_order=order)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+        if "parked" in name:
+            park = np.arange(oq.shape[0]) % 3 == 0
+            assert bool((got[0][park] < 0).all())
+
+
+def _duplicate_blocks():
+    """Two blocks of two slots; the same triangle sits at slot 1 (block 0)
+    and slot 2 (block 1), a farther one at slot 0."""
+    tri_a = [0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+    tri_far = [0.0, 0.0, -1.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+    rows = np.array([tri_far, tri_a, tri_a, [0.0] * 9], np.float32)
+    box = np.array([[0, 0, -1, 1, 1, 0], [0, 0, 0, 1, 1, 0]], np.float32)
+    return cuda_rt.pack_blocks(rows, np.array([2, 1], np.int32),
+                               np.array([7, 5, 3, -1], np.int32), [box],
+                               2, 8, "cpu")
+
+
+def test_tie_rule_lowest_slot_wins():
+    """Two coplanar duplicate triangles: the lower slot wins, whichever way
+    the blocks are walked; the prim is the slot's through slot_to_prim."""
+    blocks = _duplicate_blocks()
+    o = torch.tensor([[0.25, 0.25, 1.0], [0.25, 0.25, 1.0]])
+    d = torch.tensor([[0.0, 0.0, -1.0], [0.0, 0.0, 1.0]])
+    for order in (None, (1, 0)):
+        p, t, u, v = cuda_rt.closest_hit_bvh_reference(o, d, blocks,
+                                                       block_order=order)
+        assert p.tolist() == [5, -1]
+        assert t[0].item() == 1.0 and np.isinf(t[1].item())
+        assert (u[0].item(), v[0].item()) == (0.25, 0.25)
+        assert (u[1].item(), v[1].item()) == (0.0, 0.0)
+
+
+def test_zero_direction_and_parked_rays_miss_without_nan():
+    _, blocks, queries = _port_blocks("multi4_tb32")
+    o = torch.as_tensor(queries[0][1][:8].copy())
+    d = torch.zeros((8, 3))
+    o[4:] = 3e7
+    d[4:] = 0.57735
+    p, t, u, v = cuda_rt.closest_hit_bvh(o, d, blocks)
+    assert (p == -1).all() and torch.isinf(t).all()
+    assert not torch.isnan(u).any() and not torch.isnan(v).any()
+    assert not cuda_rt.any_hit_bvh(o, d, blocks, t_max=1e8).any()
+
+
+def test_wrappers_reject_bad_inputs():
+    _, blocks, queries = _port_blocks("multi3_tb32_parked")
+    o, d = _t(queries[0][1]), _t(queries[0][2])
+    with pytest.raises(TypeError):
+        cuda_rt.closest_hit_bvh(o.double(), d.double(), blocks)
+    with pytest.raises(ValueError):
+        cuda_rt.closest_hit_bvh(o[:, :2], d[:, :2], blocks)
+    with pytest.raises(ValueError):
+        cuda_rt.any_hit_bvh(o.to("meta"), d.to("meta"), blocks)
+    with pytest.raises(ValueError):        # a pyramid deeper than the stack
+        cuda_rt.pack_blocks(
+            np.zeros((1, 9), np.float32), np.ones(1, np.int32),
+            np.zeros(1, np.int32),
+            [np.zeros((1, 6), np.float32)] * (cuda_rt.MAX_LEVELS + 1),
+            1, 1, "cpu")
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    """Kernel against plain version on the card: every output equal bit for
+    bit (same operations in the same order, no fused multiply-add)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    dev = torch.device("cuda")
+    from skybox_rt_tpu_torch import _build
+    with open(_build.build() + ".log") as f:
+        print(f.read())
+    for name in sorted(SCENES):
+        _, blocks, queries = _port_blocks(name, device=dev)
+        for kind, oq, dq, tm in queries:
+            oq, dq, tm = _t(oq, dev), _t(dq, dev), _t(tm, dev)
+            if kind == "any":
+                got = cuda_rt.any_hit_bvh(oq, dq, blocks, t_max=tm)
+                want = cuda_rt.any_hit_bvh_reference(oq, dq, blocks, tm)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), name
+                continue
+            got = cuda_rt.closest_hit_bvh(oq, dq, blocks, t_max=tm)
+            want = cuda_rt.closest_hit_bvh_reference(oq, dq, blocks, tm)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w), name
+    # zero-direction and parked rays: all miss, no NaN
+    _, blocks, queries = _port_blocks("multi4_tb32", device=dev)
+    o = torch.as_tensor(queries[0][1][:64].copy(), device=dev)
+    d = torch.zeros((64, 3), device=dev)
+    o[32:] = 3e7
+    d[32:] = 0.57735
+    p, t, u, v = cuda_rt.closest_hit_bvh(o, d, blocks)
+    assert bool((p == -1).all()) and bool(torch.isinf(t).all())
+    assert not bool(cuda_rt.any_hit_bvh(o, d, blocks, t_max=1e8).any())
