@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's two frames on one CUDA card and check them: the
-exact-int draw3d raster frame and the ray-traced frame.
+"""Drive the PyTorch port's three frames on one CUDA card and check them: the
+exact-int draw3d raster frame, the ray-traced frame of the large scene and
+the ray-traced frame of the small scene.
 
     python3 chip_smoke.py
 
@@ -46,13 +47,46 @@ exits non-zero, and only a run where every phase passed prints the final
                1024x1024 frame; host seconds of the BVH build and the block
                preparation (printed, not judged)
 
+  11. rt_clustered_vs_plain — the clustered closest-hit, clustered any-hit
+               and flat closest-hit kernels against their plain torch
+               versions, bit for bit (``rays_differ`` must be 0): the small
+               check scenes whole (and one with more clusters than the
+               shared-memory stage holds), then the 12,032-triangle sphere
+               field on 65,536 rays of each of the six launches of its real
+               1024x1024 frame, and on the whole primary and primary-shadow
+               launches.  On the same rays the clustered kernels against the
+               flat one: occlusion and miss masks equal, every output equal
+               where the prims agree, t within rtol 1e-5 where they do not
+               (ties across clusters, under 1 % of the hits)
+ 12. rt_small_frame_256 — make_frame_fn with the default engine at 256x256,
+               2 bounces, shadows, plain and textured, against the committed
+               JAX golden (data/rt_small_256.npz): atol 1e-4 and >= 99.9 % of
+               values within 2e-5; 3 + 3 launches each
+ 13. rt_small_frame_1024 — the full-width small-scene frame, 1,048,576 rays:
+               finite, alpha 1, hit fraction and mean RGB equal to the 256x256
+               frame's to 3 digits, primary hit mask equal to the flat
+               kernel's on a 65,536-ray sample.  The counts are set to 0
+               just before the frame and read just after it: 3 + 3 clustered
+               launches and no other; the flat kernel's 1 launch that follows
+               is this script's oracle check (the tracer reaches that kernel
+               through no engine), and its entry says so: ``tracer_launches``
+               0, ``launched_by``
+ 14. rt_small_timing — CUDA events, median of 20 (the flat kernel: of 5):
+               each of the six launches' kernels alone, the flat kernel on the
+               primary launch, the plain versions on the samples, the whole
+               1024x1024 and 256x256 frames
+
 The ``kernels`` line gives each kernel's time beside its bound, both terms
 of it: ``bound_bytes_ms`` (inputs read once, outputs written once; holds
 for any algorithm) and ``bound_ops_ms`` (the operations this algorithm did
 on this run's data; for the ray queries, the tests made at the shipped
-block size).  The ray queries' ``ms`` and ``bound_ms`` are those of the
-primary launch; ``launch_ms``, ``frame_ms`` and ``frame_bound_ms`` cover
-the three launches of a frame.
+block size or cluster table).  The ray queries' ``ms`` and ``bound_ms`` are
+those of the primary launch (the any-hit kernels': the primary shadow
+launch); ``launch_ms``, ``frame_ms`` and ``frame_bound_ms`` cover the three
+launches of a frame.  ``max_abs_err`` is the largest |kernel - plain| over
+every output of the comparison run (measured; a run that prints the line
+measured 0, since any difference raises), and the ray queries add
+``rays_differ`` or ``rays_not_bit_equal``, the count of rays behind it.
 
 The script imports no JAX: the references it checks against are committed
 files (skybox_rt_tpu_torch/data/).
@@ -173,6 +207,12 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
+def northstar_camera():
+    from skybox_rt_tpu_torch.rt import tracer
+    return tracer.Camera(eye=(0.0, 2.5, 9.5), look_at=(0.0, -0.4, 0.0),
+                         fov_y_deg=55.0)
+
+
 def northstar_scene():
     """The full-width ray-traced workload: the 184,832-triangle sphere
     field with mirror reflectivity 0.35 (not finalized yet) and its camera."""
@@ -181,9 +221,71 @@ def northstar_scene():
     verts, faces, colors = scenes.sphere_field(copies=9, subdiv=5)
     scene = tracer.RTScene(verts=verts, faces=faces, colors=colors,
                            reflectivity=0.35)
-    cam = tracer.Camera(eye=(0.0, 2.5, 9.5), look_at=(0.0, -0.4, 0.0),
-                        fov_y_deg=55.0)
-    return scene, cam
+    return scene, northstar_camera()
+
+
+LAUNCH_NAMES = ["primary", "primary_shadow", "bounce1", "bounce1_shadow",
+                "bounce2", "bounce2_shadow"]
+
+
+def capture_launches(scene, cfg, closest, occluded, o, d):
+    """The six launches of a 2-bounce shadowed frame as [(kind, o, d,
+    t_max)], captured from the port's trace_rays; closest(o, d) and
+    occluded(o, d, t_max (R,)) are the queries it runs through."""
+    from skybox_rt_tpu_torch.rt import tracer
+    launches = []
+
+    def rec_closest(o, d, t_max=float("inf")):
+        launches.append(("closest", o, d, None))
+        return closest(o, d)
+
+    def rec_occluded(o, d, t_max):
+        tm = torch.full((o.shape[0],), t_max, dtype=torch.float32,
+                        device=o.device)
+        launches.append(("any", o, d, tm))
+        return occluded(o, d, tm)
+
+    tracer.trace_rays(tracer.scene_shade_arrays(scene, cfg), cfg,
+                      rec_closest, rec_occluded, scene.reflectivity, o, d)
+    kinds = [k for k, _, _, _ in launches]
+    if kinds != ["closest", "any"] * 3:
+        raise AssertionError(f"launch classes {kinds}")
+    return launches
+
+
+def sample_launch(name, launch):
+    """RT_SAMPLE rays of a launch, evenly strided: (o, d, t_max)."""
+    _, o, d, tm = launch
+    stride = max(1, o.shape[0] // RT_SAMPLE)
+    sl = slice(0, stride * RT_SAMPLE, stride)
+    os_, ds_ = o[sl].contiguous(), d[sl].contiguous()
+    if os_.shape[0] < RT_SAMPLE:
+        raise AssertionError(f"{name}: only {os_.shape[0]} rays")
+    return os_, ds_, None if tm is None else tm[sl].contiguous()
+
+
+def timed(fn):
+    """(fn(), its seconds on the host clock, the device drained)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def frame_against_golden(what, img, want):
+    """Raises unless img is within atol 1e-4 of the JAX golden and >= 99.9 %
+    of its values within 2e-5; returns the figures the phases print."""
+    diff = np.abs(img - want)
+    within = float((diff <= 2e-5).mean())
+    if not (diff.max() <= 1e-4 and within >= 0.999):
+        raise AssertionError(f"{what} != JAX golden: max |diff| "
+                             f"{diff.max()}, within 2e-5: {within}")
+    return {"max_abs_diff": float(diff.max()),
+            "values_beyond_2e5": int((diff > 2e-5).sum()),
+            "values": int(diff.size),
+            "hit_fraction": float((img[..., :3].sum(-1) > 0).mean()),
+            "mean_rgb": [float(x) for x in img[..., :3].mean((0, 1))]}
 
 
 def rt_phases(dev, card) -> list:
@@ -294,35 +396,16 @@ def rt_phases(dev, card) -> list:
         return bound(moved, tri_tests * MT_OPS + slab_pass * SLAB_OPS)
 
     # 7b. the six launches of the real frame, captured from trace_rays
-    launches = []
-
-    def rec_closest(o, d, t_max=float("inf")):
-        launches.append(("closest", o, d, None))
-        return cuda_rt.closest_hit_bvh(o, d, blocks)
-
-    def rec_occluded(o, d, t_max):
-        tm = torch.full((o.shape[0],), t_max, dtype=torch.float32,
-                        device=dev)
-        launches.append(("any", o, d, tm))
-        return cuda_rt.any_hit_bvh(o, d, blocks, t_max=tm)
-
-    tracer.trace_rays(tracer.scene_shade_arrays(scene, cfg1024), cfg1024,
-                      rec_closest, rec_occluded, scene.reflectivity,
-                      o1024, d1024)
-    kinds = [k for k, _, _, _ in launches]
-    if kinds != ["closest", "any"] * 3:
-        raise AssertionError(f"launch classes {kinds}")
-    names = ["primary", "primary_shadow", "bounce1", "bounce1_shadow",
-             "bounce2", "bounce2_shadow"]
+    launches = capture_launches(
+        scene, cfg1024, lambda o, d: cuda_rt.closest_hit_bvh(o, d, blocks),
+        lambda o, d, tm: cuda_rt.any_hit_bvh(o, d, blocks, t_max=tm),
+        o1024, d1024)
+    names = LAUNCH_NAMES
     classes = {}
-    for name, (kind, o, d, tm) in zip(names, launches):
+    for name, launch in zip(names, launches):
+        kind, o, d, tm = launch
         R = o.shape[0]
-        stride = max(1, R // RT_SAMPLE)
-        sl = slice(0, stride * RT_SAMPLE, stride)
-        os_, ds_ = o[sl].contiguous(), d[sl].contiguous()
-        tms = None if tm is None else tm[sl].contiguous()
-        if os_.shape[0] < RT_SAMPLE:
-            raise AssertionError(f"{name}: only {os_.shape[0]} rays")
+        os_, ds_, tms = sample_launch(name, launch)
         stats = {}
         e, n, got, plain_s = compare(kind, os_, ds_, tms, blocks, stats)
         parked = int((os_[:, 0] > 1e7).sum())
@@ -378,30 +461,25 @@ def rt_phases(dev, card) -> list:
     cuda_rt.reset_launch_counts()
     img256 = frame256(golden["o"][perm], golden["d"][perm])
     torch.cuda.synchronize()
-    counts256 = (cuda_rt.closest_launch_count, cuda_rt.anyhit_launch_count)
+    counts256 = (cuda_rt.launch_counts["closest_hit_bvh"],
+                 cuda_rt.launch_counts["any_hit_bvh"])
     if img256.device != blocks["tri"].device or counts256 != (3, 3):
         raise AssertionError(f"256 frame: device {img256.device}, launches "
                              f"{counts256}, expected (3, 3) on the card")
     img256 = img256.cpu().numpy()
-    diff = np.abs(img256 - golden["image"])
-    within = float((diff <= 2e-5).mean())
-    if not (diff.max() <= 1e-4 and within >= 0.999):
-        raise AssertionError(f"256 frame != JAX golden: max |diff| "
-                             f"{diff.max()}, within 2e-5: {within}")
+    fig256 = frame_against_golden("256 frame", img256, golden["image"])
     hit256 = img256[..., :3].sum(-1) > 0
-    phase("rt_frame_256", size=SIZE, launches=counts256,
-          max_abs_diff=float(diff.max()),
-          values_beyond_2e5=int((diff > 2e-5).sum()), values=int(diff.size),
-          hit_fraction=float(hit256.mean()),
-          mean_rgb=[float(x) for x in img256[..., :3].mean((0, 1))])
+    phase("rt_frame_256", size=SIZE, launches=counts256, **fig256)
 
     # 9. the full-width frame: the main path
     cuda_rt.reset_launch_counts()
     img = frame1024(o1024, d1024)
     torch.cuda.synchronize()
-    counts = (cuda_rt.closest_launch_count, cuda_rt.anyhit_launch_count)
-    if counts != (3, 3):
-        raise AssertionError(f"1024 frame launched {counts}, expected (3, 3)")
+    counts = (cuda_rt.launch_counts["closest_hit_bvh"],
+              cuda_rt.launch_counts["any_hit_bvh"])
+    if counts != (3, 3) or sum(cuda_rt.launch_counts.values()) != 6:
+        raise AssertionError(f"1024 frame launched {cuda_rt.launch_counts}, "
+                             f"expected 3 + 3 of the BVH-block kernels")
     if tuple(img.shape) != (RT_SIZE, RT_SIZE, 4) or img.dtype != torch.float32:
         raise AssertionError(f"1024 frame is {tuple(img.shape)} {img.dtype}")
     if not bool(torch.isfinite(img).all()) or not bool((img[..., 3] == 1).all()):
@@ -453,6 +531,363 @@ def rt_phases(dev, card) -> list:
           frame_256_ms=frame256_ms,
           host_s={"bvh_build_sah": bvh_build_s,
                   "block_set_and_upload": prepare_s,
+                  "make_frame_fn_1024": setup_s})
+    return entries
+
+
+def small_scene(textured=False):
+    """The small-scene ray-traced workload: the 12,032-triangle sphere field
+    (at most tracer.PALLAS_MAX_TRIS, so the default engine takes the
+    clustered kernels) with mirror reflectivity 0.35, planar texture
+    coordinates and the checkerboard when textured, and its camera."""
+    from skybox_rt_tpu_torch.models import scenes
+    from skybox_rt_tpu_torch.rt import tracer
+    verts, faces, colors = scenes.sphere_field(copies=9, subdiv=3)
+    extra = {}
+    if textured:
+        extra = dict(uvs=scenes.planar_uvs(verts),
+                     texture=scenes.checkerboard_texture(**scenes.RT_CHECKER))
+    scene = tracer.RTScene(verts=verts, faces=faces, colors=colors,
+                           reflectivity=0.35, **extra)
+    return scene, northstar_camera()
+
+
+def small_phases(dev, card) -> list:
+    """Phases 11 to 14; returns the three small-scene kernels' entries of
+    the kernels line."""
+    from skybox_rt_tpu_torch.geom import cgltrace
+    from skybox_rt_tpu_torch.models import scenes
+    from skybox_rt_tpu_torch.ops import cuda_rt
+    from skybox_rt_tpu_torch.rt import bvh as bvh_mod
+    from skybox_rt_tpu_torch.rt import intersect, tracer, wavefront
+
+    def on_card(a):
+        if a is None or np.ndim(a) == 0:
+            return a
+        return torch.as_tensor(a, device=dev)
+
+    def pack(verts, faces, bvh, max_tris):
+        tri = intersect.triangle_arrays(on_card(verts),
+                                        on_card(np.asarray(faces, np.int64)))
+        clusters = cuda_rt.prepare_clusters(
+            *tri, bvh_mod.build_clusters(bvh, max_tris))
+        return clusters, cuda_rt.pack_records(*tri)
+
+    def differ(got, want):
+        """(rays on which any output of a query differs from `want`, the
+        largest |got - want| over the outputs: equal infinities give 0 and
+        a bool counts as 0 or 1)."""
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        bad = torch.zeros(got[0].shape, dtype=torch.bool, device=dev)
+        err = 0.0
+        for g, w in zip(got, want, strict=True):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"{g.dtype} {tuple(g.shape)} vs "
+                                     f"{w.dtype} {tuple(w.shape)}")
+            ne = g != w
+            if bool(ne.any()):
+                err = max(err, float((g[ne].double() - w[ne].double())
+                                     .abs().max()))
+            bad |= ne
+        return int(bad.sum()), err
+
+    def compare(kind, o, d, tm, clusters, flat, stats=None, flat_plain=True):
+        """The clustered and the flat kernel against their plain versions on
+        one query, and against each other; raises on any mismatch.
+        Returns the figures the phases print and the clustered outputs."""
+        if kind == "any":
+            got = cuda_rt.any_hit_clustered(o, d, clusters, t_max=tm)
+            got_flat = cuda_rt.any_hit_pallas(o, d, flat, t_max=tm)
+            want, plain_s = timed(lambda: cuda_rt.any_hit_clustered_reference(
+                o, d, clusters, tm, stats=stats))
+        else:
+            got = cuda_rt.closest_hit_clustered(o, d, clusters, t_max=tm)
+            got_flat = cuda_rt.closest_hit_pallas(o, d, flat, t_max=tm)
+            want, plain_s = timed(
+                lambda: cuda_rt.closest_hit_clustered_reference(
+                    o, d, clusters, tm, stats=stats))
+        n, err = differ(got, want)
+        out = {"rays_differ": n, "max_abs_err": err,
+               "plain_ms": plain_s * 1e3}
+        if flat_plain:
+            tmf = None if tm is None else cuda_rt._per_ray_tmax(
+                tm, o.shape[0], dev)
+            want_flat, flat_s = timed(
+                lambda: cuda_rt.closest_hit_pallas_reference(o, d, flat, tmf))
+            if kind == "any":
+                want_flat = want_flat[0] >= 0
+            out["flat_rays_differ"], out["flat_max_abs_err"] = differ(
+                got_flat, want_flat)
+            out["flat_plain_ms"] = flat_s * 1e3
+        if out["rays_differ"] or out.get("flat_rays_differ"):
+            raise AssertionError(f"{kind}: kernel != plain version: {out}")
+        # clustered against flat: another algorithm, the same arithmetic
+        if kind == "any":
+            out["differ_from_flat"] = differ(got, got_flat)[0]
+            if out["differ_from_flat"]:
+                raise AssertionError(f"any_hit_clustered != any_hit_pallas "
+                                     f"on {out['differ_from_flat']} rays")
+            return out, got
+        out["prims_tied_with_flat"] = scenes.check_clustered_equals_flat(
+            [x.cpu().numpy() for x in got],
+            [x.cpu().numpy() for x in got_flat])
+        out["t_differ_from_flat"] = int((got[1] != got_flat[1]).sum())
+        return out, got
+
+    # 11a. the small check scenes, whole
+    small = {"cases": 0, "rays_differ": 0, "flat_rays_differ": 0,
+             "prims_tied_with_flat": 0}
+    for name in sorted(scenes.CLUSTER_CHECK_SCENES):
+        verts, faces, max_tris, queries = scenes.cluster_check_queries(name)
+        clusters, flat = pack(verts, faces, bvh_mod.build(verts, faces),
+                              max_tris)
+        for _, kind, o, d, tm in queries:
+            out, _ = compare(kind, on_card(o), on_card(d), on_card(tm),
+                             clusters, flat)
+            small["cases"] += 1
+            for k in ("rays_differ", "flat_rays_differ",
+                      "prims_tied_with_flat"):
+                small[k] += out.get(k, 0)
+    # more clusters than the shared-memory stage holds (the tables stay in
+    # global memory); rays of one octant, so the plain version walks one row
+    verts, faces = scenes.icosphere(subdiv=4)
+    clusters, flat = pack(verts, faces, bvh_mod.build(verts, faces), 4)
+    if clusters["num_clusters"] <= 768:
+        raise AssertionError("the unstaged case must exceed 768 clusters")
+    o, d = scenes.aimed_rays(3000, seed=9)
+    o, d = on_card(np.abs(o)), on_card(-np.abs(d))
+    for kind, tm in (("closest", None), ("any", 3.0)):
+        out, _ = compare(kind, o, d, tm, clusters, flat)
+        small["cases"] += 1
+        small["rays_differ"] += out["rays_differ"]
+    small["unstaged_clusters"] = clusters["num_clusters"]
+
+    # the full-width small scene, built once for every later phase
+    scene, cam = small_scene()
+    verts, faces = scene.verts, scene.faces
+    (_, bvh_build_s) = timed(scene.finalize)
+    kw = dict(bounces=2, shadows=True)
+    cfg1024 = tracer.RTConfig(width=RT_SIZE, height=RT_SIZE, **kw)
+    cfg256 = tracer.RTConfig(width=SIZE, height=SIZE, **kw)
+    if cfg1024.engine != "pallas" or faces.shape[0] > tracer.PALLAS_MAX_TRIS \
+            or tracer.resolve_engine(cfg1024, faces.shape[0]) != "pallas":
+        raise AssertionError("the small scene must take the default engine's "
+                             "clustered kernels")
+    (clusters, flat), prepare_s = timed(
+        lambda: pack(verts, faces, scene.bvh, 64))
+    (frame1024, (o1024, d1024)), setup_s = timed(
+        lambda: tracer.make_frame_fn(scene, cam, cfg1024))
+    if o1024.device != clusters["tri"].device:
+        raise AssertionError("make_frame_fn did not default to the card")
+    C, P = clusters["num_clusters"], clusters["num_prims"]
+
+    def launch_bounds(kind, o, d, tm, tri_tests, slab_tests):
+        """Bounds of one launch of the clustered and of the flat kernel:
+        rays, records and tables read once, the outputs (prim, t, u, v, or
+        one occlusion byte a ray) written once, against the tests the plain
+        version counted (flat: every triangle for every ray)."""
+        R = o.shape[0]
+        written = R if kind == "any" else 16 * R
+        moved = nbytes(o, d, tm, clusters["tri"], clusters["table"],
+                       clusters["visit"]) + written
+        if kind == "closest":
+            moved += nbytes(clusters["order"])
+        return (bound(moved, tri_tests * MT_OPS + slab_tests * SLAB_OPS),
+                bound(nbytes(o, d, tm, flat) + 16 * R, R * P * MT_OPS))
+
+    # 11b. the six launches of the real frame, captured from trace_rays
+    launches = capture_launches(
+        scene, cfg1024,
+        lambda o, d: cuda_rt.closest_hit_clustered(o, d, clusters),
+        lambda o, d, tm: cuda_rt.any_hit_clustered(o, d, clusters, t_max=tm),
+        o1024, d1024)
+    classes = {}
+    for name, launch in zip(LAUNCH_NAMES, launches):
+        kind, o, d, tm = launch
+        R = o.shape[0]
+        os_, ds_, tms = sample_launch(name, launch)
+        stats = {}
+        out, got = compare(kind, os_, ds_, tms, clusters, flat, stats)
+        n = os_.shape[0]
+        found = got if kind == "any" else got[0] >= 0
+        classes[name] = {
+            "kind": kind, "launch_rays": R, "sample_rays": n,
+            "parked_in_sample": int((os_[:, 0] > 1e7).sum()),
+            "hits_in_sample": int(found.sum()), **out,
+            "slab_tests_per_ray": stats["slab_tests"] / n,
+            "clusters_entered_per_ray": stats["slab_pass"] / n,
+            "tri_tests_per_ray": stats["tri_tests"] / n,
+            # the sample's counts scaled to the launch's rays
+            "bound": launch_bounds(kind, o, d, tm, stats["tri_tests"] * R / n,
+                                   stats["slab_tests"] * R / n)[0]}
+    for name in ("bounce1", "bounce1_shadow"):
+        if classes[name]["parked_in_sample"] == 0:
+            raise AssertionError(f"{name}: no parked ray in the sample")
+
+    # 11c. the whole primary and primary-shadow launches: the shapes of the
+    # kernels line (the flat kernel's plain version on the primary one only)
+    entries, flat_entry = [], None
+    for launch, name, src_line in ((launches[0], "rt_closest_hit_clustered",
+                                    230),
+                                   (launches[1], "rt_any_hit_clustered",
+                                    1693)):
+        kind, o, d, tm = launch
+        stats = {}
+        out, _ = compare(kind, o, d, tm, clusters, flat, stats,
+                         flat_plain=kind == "closest")
+        R = o.shape[0]
+        mine, flat_bound = launch_bounds(kind, o, d, tm, stats["tri_tests"],
+                                         stats["slab_tests"])
+        common = {"route": "cuda",
+                  "source": "skybox_rt_tpu_torch/csrc/rt_clustered.cu",
+                  "launches": None, "ms": None,
+                  "library_ms": None,  # no single PyTorch call computes this
+                  "rays": R}
+        entries.append({
+            "name": name,
+            "replaces": f"skybox_rt_tpu/ops/pallas_rt.py:{src_line}",
+            **common, "max_abs_err": out["max_abs_err"],
+            "plain_ms": out["plain_ms"], **mine,
+            "rays_differ": out["rays_differ"],
+            "slab_tests_per_ray": stats["slab_tests"] / R,
+            "tri_tests_per_ray": stats["tri_tests"] / R})
+        if kind == "closest":
+            flat_entry = {
+                "name": "rt_closest_hit_flat",
+                "replaces": "skybox_rt_tpu/ops/pallas_rt.py:112",
+                **common, "max_abs_err": out["flat_max_abs_err"],
+                "plain_ms": out["flat_plain_ms"], **flat_bound,
+                "rays_differ": out["flat_rays_differ"],
+                "tri_tests_per_ray": P,
+                "prims_tied_with_clustered": out["prims_tied_with_flat"]}
+    entries.append(flat_entry)
+    phase("rt_clustered_vs_plain", small=small, triangles=P, clusters=C,
+          classes=classes, equal=True,
+          rays_differ=small["rays_differ"] + small["flat_rays_differ"]
+          + sum(c["rays_differ"] + c["flat_rays_differ"]
+                for c in classes.values())
+          + sum(e["rays_differ"] for e in entries))
+
+    # 12. the 256x256 frames, plain and textured, against the JAX golden
+    with np.load(os.path.join(cgltrace.DATA_DIR, "rt_small_256.npz")) as z:
+        golden = {k: z[k] for k in z.files}
+    if int(golden["num_triangles"]) != P:
+        raise AssertionError("the golden was made from another scene")
+    perm, _ = wavefront.tile_order_perm(SIZE, SIZE, 32)
+    o256, d256 = golden["o"][perm], golden["d"][perm]
+    tex_scene, _ = small_scene(textured=True)
+    tex_scene.bvh = scene.bvh       # the same geometry: one build
+    frame256, _ = tracer.make_frame_fn(scene, cam, cfg256)
+    frame256_tex, _ = tracer.make_frame_fn(
+        tex_scene, cam, tracer.RTConfig(width=SIZE, height=SIZE,
+                                        textured=True, **kw))
+    figs = {}
+    for key, fn in (("image", frame256), ("image_textured", frame256_tex)):
+        cuda_rt.reset_launch_counts()
+        img = fn(o256, d256)
+        torch.cuda.synchronize()
+        counts = (cuda_rt.launch_counts["closest_hit_clustered"],
+                  cuda_rt.launch_counts["any_hit_clustered"])
+        if img.device != clusters["tri"].device or counts != (3, 3):
+            raise AssertionError(f"256 {key}: device {img.device}, launches "
+                                 f"{counts}, expected (3, 3) on the card")
+        figs[key] = {"launches": counts, **frame_against_golden(
+            f"small 256 {key}", img.cpu().numpy(), golden[key])}
+    if np.abs(np.subtract(figs["image"]["mean_rgb"],
+                          figs["image_textured"]["mean_rgb"])).max() < 0.01:
+        raise AssertionError("the texture does not show")
+    phase("rt_small_frame_256", size=SIZE, **figs)
+
+    # 13. the full-width frame: the slice's main path, and its primary hits
+    # held to the flat kernel (the brute-force oracle on the card)
+    cuda_rt.reset_launch_counts()
+    img = frame1024(o1024, d1024)
+    torch.cuda.synchronize()
+    # the tracer launches the clustered pair and nothing else: neither the
+    # flat kernel (no engine reaches it) nor the BVH-block kernels
+    if cuda_rt.launch_counts != {"closest_hit_clustered": 3,
+                                 "any_hit_clustered": 3}:
+        raise AssertionError(f"small 1024 frame launched "
+                             f"{dict(cuda_rt.launch_counts)}, expected 3 + 3 "
+                             f"of the clustered kernels only")
+    stride = RT_SIZE * RT_SIZE // RT_SAMPLE
+    prim_flat = cuda_rt.closest_hit_pallas(
+        o1024[::stride].contiguous(), d1024[::stride].contiguous(), flat)[0]
+    torch.cuda.synchronize()
+    counts = (cuda_rt.launch_counts["closest_hit_clustered"],
+              cuda_rt.launch_counts["any_hit_clustered"],
+              cuda_rt.launch_counts["closest_hit_flat"])
+    if counts != (3, 3, 1):
+        raise AssertionError(f"the oracle check launched the flat kernel "
+                             f"{counts[2]} times, expected 1")
+    if tuple(img.shape) != (RT_SIZE, RT_SIZE, 4) or img.dtype != torch.float32:
+        raise AssertionError(f"1024 frame is {tuple(img.shape)} {img.dtype}")
+    if not bool(torch.isfinite(img).all()) or not bool((img[..., 3] == 1).all()):
+        raise AssertionError("1024 frame: a value is not finite or alpha != 1")
+    perm1024, _ = wavefront.tile_order_perm(RT_SIZE, RT_SIZE, 32)
+    sample = on_card(perm1024.astype(np.int64))[::stride]
+    hit_img = img.reshape(-1, 4)[sample][:, :3].sum(-1) > 0
+    if not torch.equal(hit_img, prim_flat >= 0):
+        raise AssertionError("1024 frame: primary hit mask != flat kernel's")
+    hit_fraction = float((img[..., :3].sum(-1) > 0).float().mean())
+    mean_rgb = [float(x) for x in img[..., :3].mean((0, 1))]
+    ref = figs["image"]
+    if abs(hit_fraction - ref["hit_fraction"]) > 1e-3 or np.abs(
+            np.subtract(mean_rgb, ref["mean_rgb"])).max() > 1e-3:
+        raise AssertionError(f"1024 frame: hit fraction {hit_fraction}, mean "
+                             f"RGB {mean_rgb} differ from the 256 frame's")
+    phase("rt_small_frame_1024", rays=RT_SIZE * RT_SIZE, triangles=P,
+          clusters=C, launches=counts, tracer_launches=(3, 3, 0),
+          finite=True,
+          hit_mask_sample=int(sample.numel()), hit_fraction=hit_fraction,
+          mean_rgb=mean_rgb, hit_fraction_256=ref["hit_fraction"],
+          mean_rgb_256=ref["mean_rgb"])
+    for entry, n in zip(entries, counts):
+        entry["launches"] = n
+    # the flat kernel's one launch is this script's check of the frame's
+    # primary hits, inside the counted run; the tracer makes none
+    entries[2]["tracer_launches"] = 0
+    entries[2]["launched_by"] = "chip_smoke.py's oracle check of the frame"
+
+    # 14. timing (printed, not judged)
+    timing = {}
+    for name, (kind, o, d, tm) in zip(LAUNCH_NAMES, launches):
+        if kind == "any":
+            ms = median_ms(lambda: cuda_rt.any_hit_clustered(
+                o, d, clusters, t_max=tm))
+        else:
+            ms = median_ms(lambda: cuda_rt.closest_hit_clustered(
+                o, d, clusters))
+        timing[name] = {"kernel_ms": ms, "rays": o.shape[0],
+                        "mrays_per_s": o.shape[0] / ms / 1e3,
+                        "plain_ms_sample": classes[name]["plain_ms"],
+                        "flat_plain_ms_sample":
+                            classes[name]["flat_plain_ms"]}
+    for entry, first in zip(entries[:2], ("primary", "primary_shadow")):
+        mine = [n for n in LAUNCH_NAMES
+                if classes[n]["kind"] == classes[first]["kind"]]
+        entry["ms"] = timing[first]["kernel_ms"]
+        entry["launch_ms"] = {n: timing[n]["kernel_ms"] for n in mine}
+        entry["frame_ms"] = sum(timing[n]["kernel_ms"] for n in mine)
+        entry["frame_bound_ms"] = sum(classes[n]["bound"]["bound_ms"]
+                                      for n in mine)
+    entries[2]["ms"] = median_ms(
+        lambda: cuda_rt.closest_hit_pallas(o1024, d1024, flat), reps=5,
+        warmup=1)
+    frame_ms = median_ms(lambda: frame1024(o1024, d1024))
+    frame256_ms = median_ms(lambda: frame256(o256, d256))
+    kernels_ms = sum(t["kernel_ms"] for t in timing.values())
+    phase("rt_small_timing", card=card, reps=REPS, launches=timing,
+          flat_primary={"ms": entries[2]["ms"], "reps": 5,
+                        "mrays_per_s": RT_SIZE * RT_SIZE / entries[2]["ms"]
+                        / 1e3},
+          frame_1024={"ms": frame_ms, "kernels_ms": kernels_ms,
+                      "kernel_share": kernels_ms / frame_ms,
+                      "mrays_per_s": RT_SIZE * RT_SIZE * 6 / frame_ms / 1e3},
+          frame_256_ms=frame256_ms,
+          host_s={"bvh_build_sah": bvh_build_s,
+                  "clusters_and_upload": prepare_s,
                   "make_frame_fn_1024": setup_s})
     return entries
 
@@ -635,7 +1070,7 @@ def main() -> int:
         "mpix_per_s": SIZE * SIZE * draws / frame_ms / 1e3}
     phase("timing", card=card, reps=REPS, **timings)
 
-    rt_entries = rt_phases(dev, card)
+    rt_entries = rt_phases(dev, card) + small_phases(dev, card)
 
     print(card)
     p256 = timings["pass1_256"]

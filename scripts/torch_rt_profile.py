@@ -1,6 +1,7 @@
 """Where the port's 1024x1024 ray-traced frame spends its time on the card.
 
     python3 scripts/torch_rt_profile.py                      # needs a CUDA card
+    python3 scripts/torch_rt_profile.py --scene small
     python3 scripts/torch_rt_profile.py --tri-block 16 32 64 128
     python3 scripts/torch_rt_profile.py --build-times
 
@@ -13,8 +14,8 @@ prints one JSON line each for:
                    median of 10 after warm-up;
   * ``profile``  — one frame under torch.profiler (CPU + CUDA activities):
                    device-busy milliseconds (sum of device kernel time), its
-                   share of the frame's host-clock time, the two BVH kernels'
-                   part of it, the count of device kernels, and the ten
+                   share of the frame's host-clock time, the two ray-query
+                   kernels' part of it, the count of device kernels, and the ten
                    largest by summed device time (a first profiled frame is
                    thrown away: it pays the tracer's start-up);
   * ``stages``   — CUDA-event milliseconds of the frame's stages driven one
@@ -39,7 +40,12 @@ restored; nothing in the package reads an option for it.
 temporary directory: one nvcc over all sources, and one nvcc a source
 started together plus the link (what skybox_rt_tpu_torch._build does).
 
-Timer, scene and camera are chip_smoke.py's.
+``--scene small`` profiles the 12,032-triangle sphere field
+(sphere_field(copies=9, subdiv=3)) instead, which the default engine answers
+with the clustered kernels: the same three lines, the stages on the clustered
+closest-hit and any-hit kernels.
+
+Timer, scenes and camera are chip_smoke.py's.
 """
 from __future__ import annotations
 
@@ -57,7 +63,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import median_ms, northstar_scene, nvidia_smi  # noqa: E402
+from chip_smoke import (median_ms, northstar_scene, nvidia_smi,  # noqa: E402
+                        small_scene)
 from skybox_rt_tpu_torch import _build  # noqa: E402
 from skybox_rt_tpu_torch.ops import cuda_rt  # noqa: E402
 from skybox_rt_tpu_torch.rt import bvh as bvh_mod  # noqa: E402
@@ -142,6 +149,8 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tri-block", type=int, nargs="+", metavar="SIZE")
     ap.add_argument("--build-times", action="store_true")
+    ap.add_argument("--scene", choices=("northstar", "small"),
+                    default="northstar")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_rt_profile: no CUDA device")
@@ -151,10 +160,17 @@ def main(argv) -> int:
         build_times(card)
         return 0
 
-    scene, cam = northstar_scene()
+    small = args.scene == "small"
+    scene, cam = small_scene() if small else northstar_scene()
     scene.finalize()
     cfg = tracer.RTConfig(width=SIZE, height=SIZE, bounces=2, shadows=True)
+    engine = tracer.resolve_engine(cfg, scene.faces.shape[0])
+    if engine != ("pallas" if small else "pallas_bvh"):
+        raise SystemExit(f"scene {args.scene} resolved to engine {engine}")
     if args.tri_block:
+        if small:
+            raise SystemExit("--tri-block sweeps the BVH-block engine: use "
+                             "it with --scene northstar")
         sweep_tri_block(args.tri_block, scene, cam, cfg, dev, card)
         return 0
     frame, (o, d) = tracer.make_frame_fn(scene, cam, cfg)
@@ -165,6 +181,8 @@ def main(argv) -> int:
     ev = event_ms(run)
     print(json.dumps({"frame": {"event_ms": ev, "host_ms": host_ms(run),
                                 "mrays_per_s": SIZE * SIZE * 6 / ev / 1e3},
+                      "scene": args.scene, "engine": engine,
+                      "triangles": int(scene.faces.shape[0]),
                       "card": card}), flush=True)
 
     from torch.autograd import DeviceType
@@ -191,21 +209,39 @@ def main(argv) -> int:
             rows.append((e.key, dev_us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    ours = sum(ms for k, ms, _ in rows if "_bvh_kernel" in k)
+    ours = sum(ms for k, ms, _ in rows
+               if ("_clustered_kernel" if small else "_bvh_kernel") in k)
     print(json.dumps({"profile": {
         "device_time_seen": bool(rows), "frame_host_ms_under_profiler": wall,
         "device_busy_ms": busy, "device_busy_share": busy / wall,
-        "bvh_kernels_ms": ours, "other_kernels_ms": busy - ours,
+        "rt_kernels_ms": ours, "other_kernels_ms": busy - ours,
         "device_kernels": int(sum(r[2] for r in rows)),
         "top": [{"name": k[:60], "ms": ms, "count": n}
                 for k, ms, n in rows[:10]]}, "card": card}), flush=True)
 
     # the stages one by one, on the frame's own primary rays
-    blocks = cuda_rt.prepare_bvh_blocks(
-        *device_triangles(scene, dev),
-        bvh_mod.build_block_set(scene.bvh, tri_block=tracer.BVH_TRI_BLOCK))
+    tri = device_triangles(scene, dev)
+    if small:
+        clusters = cuda_rt.prepare_clusters(
+            *tri, bvh_mod.build_clusters(scene.bvh))
+
+        def closest(o, d):
+            return cuda_rt.closest_hit_clustered(o, d, clusters)
+
+        def occluded(o, d, tm):
+            return cuda_rt.any_hit_clustered(o, d, clusters, t_max=tm)
+    else:
+        blocks = cuda_rt.prepare_bvh_blocks(*tri, bvh_mod.build_block_set(
+            scene.bvh, tri_block=tracer.BVH_TRI_BLOCK))
+
+        def closest(o, d):
+            return cuda_rt.closest_hit_bvh(o, d, blocks)
+
+        def occluded(o, d, tm):
+            return cuda_rt.any_hit_bvh(o, d, blocks, t_max=tm)
+
     arrays = tracer.scene_shade_arrays(scene, cfg)
-    prim, t, u, v = cuda_rt.closest_hit_bvh(o, d, blocks)
+    prim, t, u, v = closest(o, d)
     no_shadow = dataclasses.replace(cfg, shadows=False)
     _, hit, pt, n = tracer.shade_hits(arrays, no_shadow, None, o, d, prim, t,
                                       u, v)
@@ -222,17 +258,15 @@ def main(argv) -> int:
         return packed[perm]
 
     stages = {
-        "closest_hit_kernel": event_ms(
-            lambda: cuda_rt.closest_hit_bvh(o, d, blocks)),
+        "closest_hit_kernel": event_ms(lambda: closest(o, d)),
         "shade_hits_no_shadow": event_ms(
             lambda: tracer.shade_hits(arrays, no_shadow, None, o, d, prim, t,
                                       u, v)),
-        "any_hit_kernel": event_ms(
-            lambda: cuda_rt.any_hit_bvh(sh_o, ldir, blocks, t_max=tmax)),
+        "any_hit_kernel": event_ms(lambda: occluded(sh_o, ldir, tmax)),
         "compaction_key_argsort_gather": event_ms(compaction),
     }
     print(json.dumps({"stages": stages, "rays": int(o.shape[0]),
-                      "card": card}), flush=True)
+                      "scene": args.scene, "card": card}), flush=True)
     return 0
 
 

@@ -7,8 +7,8 @@ started together, and the objects are linked into one library.  It lands in
 ``skybox_rt_tpu_torch/_build/`` and is keyed by a hash of the sources and
 flags, so an edited source rebuilds.  Flags keep IEEE float32 division and no
 FMA contraction, which the exact-int raster path (csrc/raster_visibility.cu)
-and the ray queries' agreement with their plain versions (csrc/rt_bvh.cu)
-need; fast math is never used.
+and the ray queries' agreement with their plain versions (csrc/rt_bvh.cu,
+csrc/rt_clustered.cu) need; fast math is never used.
 """
 from __future__ import annotations
 
@@ -42,6 +42,12 @@ _SIGNATURES = {
     # o d tmax tri bcnt aabb, host level_off level_cnt, num_levels
     # tri_block, t_min, R, occ, the stream
     "skybox_rt_any_hit_bvh": [_P] * 8 + [_I, _I, _F, _I] + [_P] * 2,
+    # o d tmax tri table visit order, C, t_min, R, prim t u v, the stream
+    "skybox_rt_closest_hit_clustered": [_P] * 7 + [_I, _F, _I] + [_P] * 5,
+    # o d tmax tri table visit, C, t_min, R, occ, the stream
+    "skybox_rt_any_hit_clustered": [_P] * 6 + [_I, _F, _I] + [_P] * 2,
+    # o d tmax tri, P, t_min, R, prim t u v, the stream
+    "skybox_rt_closest_hit_flat": [_P] * 4 + [_I, _F, _I] + [_P] * 5,
 }
 
 _lock = threading.Lock()

@@ -2,7 +2,7 @@
 
 The renderer's "weights" are the trace, the binned arrays, the resolved
 render state and the texel table; the ray tracer's are the scene, its BVH,
-the treelet blocks, the camera and the config.  These helpers rebuild the
+the treelet blocks or clusters, the camera and the config.  These helpers rebuild the
 port's objects
 from the JAX package's by reading attributes and numpy arrays only — this
 module never imports jax or skybox_rt_tpu — so a test can feed both
@@ -138,6 +138,23 @@ def bvh_blocks_from_reference(blocks, device) -> dict:
         np.array(blocks["s2p"], np.int32),
         [np.array(a, np.float32) for a in blocks["levels"]],
         int(blocks["tri_block"]), int(blocks["num_prims"]), device)
+
+
+def clusters_from_reference(clusters, v0, e1, e2, device) -> dict:
+    """The dict of the JAX package's ``rt.bvh.build_clusters`` and the
+    triangle arrays (v0, e1, e2: (P, 3), as numpy) its clustered kernels are
+    called with -> the port's ``ops.cuda_rt.prepare_clusters`` dict on
+    ``device``: the records in treelet order without the 16-lane padding,
+    the cluster table, and the port's own octant visit table (the JAX
+    package derives its table inside each call, it is no state)."""
+    order = np.array(clusters["order"], np.int32)
+    tri = cuda_rt.pack_records(
+        *(torch.from_numpy(np.array(a, np.float32)) for a in (v0, e1, e2)),
+        order=order)
+    return cuda_rt.pack_clusters(
+        tri, np.array(clusters["aabb"], np.float32),
+        np.array(clusters["first"], np.int32),
+        np.array(clusters["count"], np.int32), order, device)
 
 
 def camera_from_reference(obj) -> tracer.Camera:

@@ -2,8 +2,9 @@
 ray-tracing path.
 
 Counterpart of skybox_rt_tpu.models.scenes, copied as is; :func:`multi_sphere`
-and :func:`aimed_rays` are the scene and ray makers of the BVH kernels'
-checks (the CPU tests and chip_smoke.py share them).  Everything is float32
+and :func:`aimed_rays` are the scene and ray makers of the ray-query kernels'
+checks (the CPU tests and chip_smoke.py share them), :func:`planar_uvs` the
+texture coordinates of the textured ray-traced frames.  Everything is float32
 numpy on the host.
 """
 from __future__ import annotations
@@ -110,6 +111,20 @@ def sphere_field(copies=9, subdiv=5, spacing=2.4, ground=True, seed=0):
             np.concatenate(cs).astype(F32))
 
 
+#: checkerboard_texture arguments of the textured ray-traced frames.  With
+#: planar_uvs a world unit spans 4 texels: a bilinear lookup turns a hit
+#: point's last-bit differences into colour differences in proportion to
+#: that, and the frames are held to a float tolerance.
+RT_CHECKER = dict(size=32, tiles=4)
+
+
+def planar_uvs(verts, scale=0.125):
+    """(V, 2) f32 texture coordinates from a mesh's x and z (a planar
+    projection from above; the sampler's repeat wrap tiles it)."""
+    verts = np.asarray(verts, F32)
+    return (verts[:, [0, 2]] * F32(scale) + F32(0.5)).astype(F32)
+
+
 def multi_sphere(n=4, subdiv=2, seed=5):
     """n icospheres of seeded radius and offset, centred on their mean:
     (verts (V,3) f32, faces (P,3) i64).  Cuts into many small BVH blocks."""
@@ -175,3 +190,77 @@ def bvh_check_queries(name):
     else:
         queries = [("closest", o, d, None)]
     return verts, faces, tri_block, queries
+
+
+# The scenes the clustered and flat ray queries are checked on, by the CPU
+# tests against the JAX package and by chip_smoke.py on the card:
+# name -> (mesh maker, its arguments, max_tris of a cluster, rays, ray seed)
+CLUSTER_CHECK_SCENES = {
+    "ico3_c64": (icosphere, dict(subdiv=3), 64, 2000, 5),
+    "ico2_c64_anyhit": (icosphere, dict(subdiv=2), 64, 1500, 11),
+    "ico1_c32_anyhit": (icosphere, dict(subdiv=1), 32, 700, 13),
+    "multi4_c32": (multi_sphere, dict(n=4, subdiv=2), 32, 1000, 31),
+}
+
+
+def axis_parallel(d):
+    """A copy of unit directions d with one component zeroed in two rays of
+    three (renormalised) and every 97th direction all zero."""
+    d = d.copy()
+    d[0::3, 0] = 0.0
+    d[1::3, 1] = 0.0
+    d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), F32(1e-20))
+    d[5::97] = 0.0
+    return d.astype(F32)
+
+
+def cluster_check_queries(name):
+    """(verts, faces, max_tris, queries) of a check scene; queries is a
+    list of (label, kind, o, d, t_max) as in :func:`bvh_check_queries`."""
+    maker, kw, max_tris, R, seed = CLUSTER_CHECK_SCENES[name]
+    verts, faces = maker(**kw)
+    o, d = aimed_rays(R, seed=seed)
+    rng = np.random.default_rng(17)
+    if name == "ico3_c64":
+        op, dp, _ = parked(o, d, 3)
+        queries = [
+            ("unbounded", "closest", o, d, None),
+            ("per_ray_tmax", "closest", o, d,
+             rng.uniform(1.5, 3.5, size=R).astype(F32)),
+            ("parked", "closest", op, dp, None),
+            ("axis_parallel", "closest", o, axis_parallel(d), None)]
+    elif name == "ico2_c64_anyhit":
+        queries = [(f"tmax_{tm:g}", "any", o, d, tm)
+                   for tm in (0.5, 2.0, 1e8)]
+    elif name == "ico1_c32_anyhit":
+        queries = [("per_ray_tmax", "any", o, d,
+                    rng.uniform(0.1, 5.0, size=R).astype(F32))]
+    else:
+        op, dp, _ = parked(o, d, 4)
+        queries = [("unbounded", "closest", o, d, None),
+                   ("parked_tmax_2", "any", op, dp, 2.0)]
+    return verts, np.asarray(faces, np.int64), max_tris, queries
+
+
+def check_clustered_equals_flat(got, got_flat):
+    """Hold a clustered closest-hit result (prim, t, u, v as numpy arrays) to
+    the flat query's on the same rays.  The two run the same arithmetic on
+    each triangle, so the miss masks are equal and wherever the prims agree
+    every output is equal bit for bit; where the prims differ the hit is a
+    tie between triangles (lowest slot against lowest prim id): the two t
+    agree to rtol 1e-5, on at most 1 % of the hits.  Raises AssertionError
+    otherwise; returns the number of such ties."""
+    p, pf = got[0], got_flat[0]
+    if not np.array_equal(p < 0, pf < 0):
+        raise AssertionError("clustered and flat miss masks differ")
+    same = p == pf
+    for name, g, w in zip("tuv", got[1:], got_flat[1:]):
+        if not np.array_equal(g[same], w[same]):
+            raise AssertionError(f"clustered {name} != flat {name} where the "
+                                 f"prims agree")
+    ties, hits = int((~same).sum()), int((p >= 0).sum())
+    t, tf = got[1][~same], got_flat[1][~same]
+    if ties > 0.01 * hits or (np.abs(t - tf) > 1e-5 * np.abs(tf)).any():
+        raise AssertionError(f"clustered != flat beyond ties: {ties} of "
+                             f"{hits} hits")
+    return ties

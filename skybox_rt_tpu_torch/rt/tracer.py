@@ -32,9 +32,8 @@ F32 = torch.float32
 I32 = torch.int32
 
 #: above this many triangles engine "pallas" takes the BVH-block kernels
-#: ("pallas_bvh"), at or below it the clustered kernels (not ported yet);
-#: the same switch as the JAX package, so both take the same engine for
-#: the same scene
+#: ("pallas_bvh"), at or below it the clustered kernels; the same switch as
+#: the JAX package, so both take the same engine for the same scene
 PALLAS_MAX_TRIS = 15000
 #: treelet block size of the pallas_bvh engine (rt.bvh.build_block_set).
 #: Kept at the JAX package's value only because it defines the same
@@ -44,9 +43,6 @@ BVH_TRI_BLOCK = 256
 ENGINES = ("pallas", "pallas_bvh", "bvh", "brute")
 #: engines of the JAX package whose kernels are not ported yet
 UNPORTED_ENGINES = {
-    "pallas": "closest_hit_clustered / any_hit_clustered "
-              "(skybox_rt_tpu/ops/pallas_rt.py:343, :1767), the engine for "
-              f"scenes of at most {PALLAS_MAX_TRIS} triangles",
     "pallas_streamed": "closest_hit_streamed "
                        "(skybox_rt_tpu/ops/pallas_rt.py:566)",
     "pallas_worklist": "closest_hit_worklist "
@@ -100,12 +96,12 @@ class RTConfig:
     shadows: bool = False
     textured: bool = False
     use_bvh: bool = True          # legacy toggle: False forces engine=brute
-    # engine: 'pallas' (the JAX package's default name; takes 'pallas_bvh'
-    # above PALLAS_MAX_TRIS triangles, and raises NotImplementedError at or
-    # below, where the JAX package runs its clustered kernels),
-    # 'pallas_bvh' (BVH-treelet blocks: the CUDA kernels of ops.cuda_rt),
-    # 'bvh' (stackless lockstep traversal, plain torch), 'brute' (all-pairs
-    # oracle).  'pallas_streamed' / 'pallas_worklist' are not ported.
+    # engine: 'pallas' (the default, as in the JAX package: the clustered
+    # CUDA kernels of ops.cuda_rt at or below PALLAS_MAX_TRIS triangles,
+    # 'pallas_bvh' above), 'pallas_bvh' (BVH-treelet blocks: the BVH-block
+    # CUDA kernels of ops.cuda_rt), 'bvh' (stackless lockstep traversal,
+    # plain torch), 'brute' (all-pairs oracle).  'pallas_streamed' /
+    # 'pallas_worklist' are not ported and raise NotImplementedError.
     engine: str = "pallas"
     # re-compact surviving rays to the front before each bounce.  Dead rays
     # are parked at a far origin and grouped at the tail, so whole warps of
@@ -284,16 +280,18 @@ def _interp3(rows3, u, v):
 
 
 def resolve_engine(cfg: RTConfig, num_tris: int) -> str:
-    """The engine make_intersectors takes for a scene of num_tris triangles;
-    raises NotImplementedError for one whose kernels are not ported."""
+    """The engine make_intersectors takes for a scene of num_tris triangles
+    ("pallas" stands for the clustered kernels: it is returned only at or
+    below PALLAS_MAX_TRIS); raises NotImplementedError for one whose kernels
+    are not ported."""
     engine = cfg.engine if cfg.use_bvh else "brute"
     if engine == "pallas" and num_tris > PALLAS_MAX_TRIS:
         engine = "pallas_bvh"
     if engine in UNPORTED_ENGINES:
         raise NotImplementedError(
-            f"engine {cfg.engine!r} on {num_tris} triangles needs "
-            f"{UNPORTED_ENGINES[engine]}, which is not ported yet "
-            "(ROADMAP.md); use 'pallas_bvh', 'bvh' or 'brute'")
+            f"engine {cfg.engine!r} needs {UNPORTED_ENGINES[engine]}, "
+            "which is not ported yet (ROADMAP.md); use 'pallas', "
+            "'pallas_bvh', 'bvh' or 'brute'")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     return engine
@@ -313,7 +311,20 @@ def make_intersectors(scene: RTScene, cfg: RTConfig, device=None):
         return torch.broadcast_to(
             torch.as_tensor(t_max, dtype=F32, device=o.device), o.shape[:1])
 
-    if engine == "pallas_bvh":
+    if engine == "pallas":
+        from ..ops import cuda_rt
+
+        clusters = cuda_rt.prepare_clusters(
+            *tri, bvh_mod.build_clusters(scene.bvh))
+
+        def closest(o, d, t_max=math.inf):
+            tm = None if t_max is math.inf else per_ray(t_max, o)
+            return cuda_rt.closest_hit_clustered(o, d, clusters, t_max=tm)
+
+        def occluded(o, d, t_max):
+            return cuda_rt.any_hit_clustered(o, d, clusters,
+                                             t_max=per_ray(t_max, o))
+    elif engine == "pallas_bvh":
         from ..ops import cuda_rt
 
         block_set = bvh_mod.build_block_set(scene.bvh,

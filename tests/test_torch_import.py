@@ -39,12 +39,16 @@ scene = tracer.RTScene(verts=verts, faces=faces,
 img = tracer.render(scene, tracer.Camera(eye=(0, 0.5, 3), look_at=(0, 0, 0)),
                     tracer.RTConfig(width=16, height=16, engine="brute",
                                     bounces=1, shadows=True), device="cpu")
+small = tracer.render(scene, tracer.Camera(eye=(0, 0.5, 3), look_at=(0, 0, 0)),
+                      tracer.RTConfig(width=16, height=16, bounces=1,
+                                      shadows=True), device="cpu")
 loaded = sorted(k for k in sys.modules
                 if k == "jax" or k.startswith(("jax.", "jaxlib"))
                 or k == "skybox_rt_tpu" or k.startswith("skybox_rt_tpu."))
 print(json.dumps({"loaded": loaded, "shape": list(fb.shape),
                   "dtype": str(fb.dtype), "rt_shape": list(img.shape),
-                  "rt_hits": int((img[..., :3].sum(-1) > 0).sum())}))
+                  "rt_hits": int((img[..., :3].sum(-1) > 0).sum()),
+                  "rt_default_engine_diff": float((small - img).abs().max())}))
 """
 
 
@@ -75,6 +79,8 @@ def test_no_jax_after_import_and_render(probe):
     assert probe["loaded"] == []
     assert probe["shape"] == [32, 32] and probe["dtype"] == "uint32"
     assert probe["rt_shape"] == [16, 16, 4] and probe["rt_hits"] > 20
+    # the default engine (the clustered pair) against the all-pairs oracle
+    assert probe["rt_default_engine_diff"] <= 2e-5
 
 
 _BAD_IMPORT = re.compile(
@@ -107,3 +113,73 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                              timeout=300)
         assert res.returncode != 0
         assert '"ok": true' not in res.stdout
+
+
+_C_FUNCTION = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
+
+
+def _c_interface():
+    """name -> ctypes kinds of every extern "C" function in csrc/*.cu."""
+    import ctypes
+
+    from skybox_rt_tpu_torch import _build
+    found = {}
+    for src in _build._sources():
+        with open(src) as f:
+            for name, params in _C_FUNCTION.findall(f.read()):
+                kinds = []
+                for prm in params.split(","):
+                    ctype = prm.strip().rsplit(" ", 1)[0]
+                    kinds.append(ctypes.c_void_p if ctype.endswith("*") else
+                                 {"int": ctypes.c_int,
+                                  "float": ctypes.c_float}[ctype])
+                found[name] = kinds
+    return found
+
+
+def test_ctypes_signatures_match_the_sources():
+    """No compiler here: hold the argument lists that ctypes passes to the
+    ones the sources declare, kernel by kernel."""
+    from skybox_rt_tpu_torch import _build
+    found = _c_interface()
+    assert sorted(found) == sorted(_build._SIGNATURES)
+    assert {"skybox_rt_closest_hit_clustered", "skybox_rt_any_hit_clustered",
+            "skybox_rt_closest_hit_flat"} <= set(found)
+    for name, kinds in found.items():
+        assert kinds == _build._SIGNATURES[name], name
+    names = {os.path.basename(s) for s in _build._sources()}
+    assert names == {"raster_visibility.cu", "rt_bvh.cu", "rt_clustered.cu",
+                     "rt_common.cuh"}
+
+
+def test_package_data_ships_every_source():
+    """An installed package builds its kernels too: every file the build
+    reads (sources and the header they include) matches a package-data
+    glob."""
+    import fnmatch
+    import tomllib
+
+    from skybox_rt_tpu_torch import _build
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "skybox_rt_tpu_torch"]
+    pkg = os.path.dirname(skybox_rt_tpu_torch.__file__)
+    for src in _build._sources():
+        rel = os.path.relpath(src, pkg).replace(os.sep, "/")
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), rel
+
+
+@pytest.mark.cuda
+def test_every_source_builds_on_card():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the kernels build there")
+    from skybox_rt_tpu_torch import _build
+    lib = _build.load_library()
+    for name in _build._SIGNATURES:
+        assert hasattr(lib, name), name
+    with open(_build.build() + ".log") as f:
+        log = f.read()
+    for src in _build._sources():
+        if src.endswith(".cu"):
+            assert os.path.basename(src) in log
