@@ -1,6 +1,7 @@
-"""Drive the PyTorch port's three frames on one CUDA card and check them: the
-exact-int draw3d raster frame, the ray-traced frame of the large scene and
-the ray-traced frame of the small scene.
+"""Drive the PyTorch port's four paths on one CUDA card and check them: the
+exact-int draw3d raster frame, the ray-traced frame of the large scene, the
+ray-traced frame of the small scene, and the training step of the
+differentiable render.
 
     python3 chip_smoke.py
 
@@ -76,6 +77,47 @@ exits non-zero, and only a run where every phase passed prints the final
                primary launch, the plain versions on the samples, the whole
                1024x1024 and 256x256 frames
 
+  15. diff_vis_vs_plain — the differentiable pipeline's hard-mode visibility
+               kernel against the plain chunk reduction (engine="xla") on the
+               card, equal on every pixel: random-triangle scenes (seeds 0 and
+               3, depth test on and off), tile_logsize 3..6, a scene with
+               coplanar duplicates, one with degenerate triangles (w = 1e-30,
+               w = 0, zero area), and the training icosphere at 512x512 and
+               1024x1024
+ 16. diff_accumulate_vs_plain — the row-accumulation kernel against its
+               order-exact plain version, bit for bit, and two launches
+               bit-identical: (N, R, C) = (3000, 256, 16) with out-of-range
+               and negative rows, and all five calls of a real 1024x1024
+               backward pass, captured (the texel and record tables and the
+               pos, color and uv vertex tables); the largest difference from
+               a float64 sum is printed
+ 17. diff_step_256 — one forward and backward of render_deferred at 256x256
+               in the hard, alpha and soft modes against the committed JAX
+               golden (data/diff_step_256.npz): image atol 1e-4 with >= 99.9 %
+               of values within 2e-5, loss rtol 1e-5, each gradient
+               max |diff| <= 1e-4 * max |gradient|, winner steps differing
+               only at ties on under 0.1 % of the pixels; launches read just
+               after each step: visibility 1 (hard mode; the K-slot modes
+               have no kernel), accumulation 4 + K
+ 18. diff_train_1024 — the training path at full width, 1024x1024, 5,120
+               triangles: two steps from the same parameters give the same
+               gradient bits; the counts are set to 0, ten plain SGD steps
+               (p - 1e-6 g) run, every loss finite and lower than the one
+               before, every gradient finite, and the counts read 10 and 50
+               (1 + 5 a step); then diff.optim.fit(steps=10, lr=1e-2) from
+               the same start: 10 finite losses, no rejected step, 10 and 50
+               launches.  Then the alpha and soft modes at 512x512 with
+               auto_slots, one step each: finite, max_writes <= slots, image
+               equal to the sequential render()'s on the card within rtol
+               1e-4, atol 1e-4
+ 19. diff_timing — CUDA events, median of 20: the visibility kernel and the
+               plain chunk reduction (of 5) at 1024x1024; the accumulation
+               kernel, its plain version (one run, from phase 16) and
+               ``zeros(R, C).index_add_`` (the library call; it takes only
+               the kept rows) on the texel, record, pos and uv tables;
+               forward, backward and whole step at 512x512 and 1024x1024,
+               Mpix/s = size^2 / step time
+
 The ``kernels`` line gives each kernel's time beside its bound, both terms
 of it: ``bound_bytes_ms`` (inputs read once, outputs written once; holds
 for any algorithm) and ``bound_ops_ms`` (the operations this algorithm did
@@ -87,6 +129,14 @@ launches of a frame.  ``max_abs_err`` is the largest |kernel - plain| over
 every output of the comparison run (measured; a run that prints the line
 measured 0, since any difference raises), and the ray queries add
 ``rays_differ`` or ``rays_not_bit_equal``, the count of rays behind it.
+The training path's two entries give the kernel on the 1024x1024 step's
+tensors; ``launches`` are those of the ten SGD steps.  ``diff_accumulate``'s
+``ms`` is the texel table's launch (the widest of a step's five) and
+``step_ms`` lists the table classes; its ``library_ms`` is ``index_add_``,
+which the port never calls on a CUDA tensor.  Its ``bound_ms`` is the
+function's own (the bytes, and one add a kept value's column); the R * N
+row compares that the owner-computes algorithm spends on top are printed
+apart, as ``algorithm_ops`` and ``algorithm_ops_ms``, and enter no bound.
 
 The script imports no JAX: the references it checks against are committed
 files (skybox_rt_tpu_torch/data/).
@@ -892,6 +942,386 @@ def small_phases(dev, card) -> list:
     return entries
 
 
+# float operations of one step of the differentiable pipeline's visibility
+# kernel (csrc/diff_visibility.cu) at one pixel: three edge functions (2
+# multiplies + 2 adds each) and three compares; a covered pixel with the
+# depth test adds 2 adds, |den| + compare + select, 2 divides, 2 subtracts,
+# 3 multiplies + 2 adds and the compare with the best z.
+DIFF_VIS_STEP_OPS = 15
+DIFF_VIS_COVERED_OPS = 15
+DIFF_SIZE = 1024        # the full-width training step
+DIFF_STEPS = 10
+
+
+def diff_phases(dev, card) -> list:
+    """Phases 15 to 19, the training path; returns the two kernels' entries
+    of the kernels line."""
+    from skybox_rt_tpu_torch.diff import (check, cuda_texgrad, cuda_vis,
+                                          optim, pipeline)
+
+    def reset_counts():
+        cuda_vis.reset_launch_count()
+        cuda_texgrad.reset_launch_count()
+
+    def counts():
+        return (cuda_vis.launch_count, cuda_texgrad.launch_count)
+
+    def scene(maker, *args, **kw):
+        params, static, cfg = maker(*args, **kw)
+        params, static = check.to_device(params, static)
+        if params["pos"].device.type != dev.type:
+            raise AssertionError("to_device did not default to the card")
+        return params, static, cfg
+
+    def vis_inputs(params, static, cfg):
+        with torch.no_grad():
+            setup = pipeline.prim_setup(params, static["indices"], cfg)
+        return (setup, static["tile_pids"],
+                static["tile_xy"] * (1 << cfg.tile_logsize))
+
+    # 15. kernel #4 against the plain chunk reduction, equal on every pixel
+    def compare_vis(what, params, static, cfg):
+        setup, pids, origins = vis_inputs(params, static, cfg)
+        got, got_w = pipeline.visibility_slots(setup, pids, origins, cfg)
+        want, want_w = pipeline.visibility_slots(setup, pids, origins, cfg,
+                                                 engine="xla")
+        torch.cuda.synchronize()
+        if got.dtype != torch.int32 or got.shape != want.shape:
+            raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)}")
+        err = int((got.long() - want.long()).abs().max())
+        if err or int(got_w) != int(want_w):
+            raise AssertionError(
+                f"{what}: diff_visibility != plain version on "
+                f"{int((got != want).sum())} of {got.numel()} pixels")
+        return {"tiles": got.shape[0], "M": pids.shape[1],
+                "covered_pixels": int((got >= 0).sum()), "max_abs_err": err}
+
+    reset_counts()
+    vis_cases = {}
+    for seed in (0, 3):
+        for depth_test in (True, False):
+            vis_cases[f"random_{seed}_{'z' if depth_test else 'noz'}"] = \
+                compare_vis("random", *scene(check.random_triangles, seed=seed,
+                                             depth_test=depth_test))
+    for tls in (3, 4, 5, 6):
+        for depth_test in (True, False):
+            vis_cases[f"tile_{tls}_{'z' if depth_test else 'noz'}"] = \
+                compare_vis(f"tile_logsize {tls}", *scene(
+                    check.random_triangles, n=60, seed=tls, size=128,
+                    tile_logsize=tls, depth_test=depth_test))
+    vis_cases["coplanar_duplicates"] = compare_vis("duplicates", *scene(
+        check.random_triangles, duplicates=12))
+    for depth_test in (True, False):
+        vis_cases[f"degenerate_{'z' if depth_test else 'noz'}"] = compare_vis(
+            "degenerate", *scene(check.random_triangles, degenerate=True,
+                                 depth_test=depth_test))
+    for size in (512, DIFF_SIZE):
+        vis_cases[f"icosphere_{size}"] = compare_vis(
+            f"icosphere {size}", *scene(check.train_scene, size))
+    if counts() != (len(vis_cases), 0):
+        raise AssertionError(f"phase 15 launched {counts()}")
+    vis_err = max(c["max_abs_err"] for c in vis_cases.values())
+    phase("diff_vis_vs_plain", cases=len(vis_cases), equal=True,
+          max_abs_err=vis_err, **vis_cases)
+
+    # 16. kernel #5 against its plain version, bit for bit, and twice
+    def compare_acc(what, idx, val, R):
+        got = cuda_texgrad.accumulate_rows(idx, val, R)
+        again = cuda_texgrad.accumulate_rows(idx, val, R)
+        want, plain_s = timed(
+            lambda: cuda_texgrad.accumulate_rows_reference(idx, val, R))
+        if got.dtype != torch.float32 or tuple(got.shape) != (R, val.shape[1]):
+            raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two launches differ")
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{what}: diff_accumulate != plain version, max |diff| "
+                f"{float((got - want).abs().max())}")
+        exact = torch.zeros((R, val.shape[1]), dtype=torch.float64,
+                            device=dev)
+        keep = (idx >= 0) & (idx < R)
+        exact.index_add_(0, idx[keep].long(), val[keep].double())
+        return {"N": idx.numel(), "R": R, "C": val.shape[1],
+                "segments": cuda_texgrad.segments(idx.numel()),
+                "rows_dropped": int((~keep).sum()),
+                "max_abs_err": float((got - want).abs().max()),
+                "max_abs_diff_from_float64": float(
+                    (got.double() - exact).abs().max()),
+                "plain_ms": plain_s * 1e3}
+
+    rng = np.random.default_rng(0)
+    idx = rng.integers(-20, 256 + 40, 3000).astype(np.int32)
+    val = rng.normal(size=(3000, 16)).astype(np.float32)
+    acc_cases = {"small": compare_acc(
+        "small", torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev),
+        256)}
+    if acc_cases["small"]["rows_dropped"] == 0 or int((idx < 0).sum()) == 0:
+        raise AssertionError("the small case must drop rows")
+    # the calls of one real full-width backward pass, captured
+    params, static, cfg = scene(check.train_scene, DIFF_SIZE)
+    captured = []
+    real_accumulate = pipeline._accumulate_rows
+
+    def recording(idx, val, num_rows):
+        out = real_accumulate(idx, val, num_rows)
+        captured.append((idx.detach().clone(), val.detach().clone(),
+                         num_rows, out.detach().clone()))
+        return out
+
+    pipeline._accumulate_rows = recording
+    try:
+        check.step(params, static, cfg)
+    finally:
+        pipeline._accumulate_rows = real_accumulate
+    T, M = static["tile_pids"].shape
+    V, P = params["pos"].shape[0], static["indices"].shape[0]
+    th, tw = params["tex"].shape[:2]
+    shapes = sorted((i.numel(), r, v.shape[1]) for i, v, r, _ in captured)
+    if shapes != sorted([(T * 1024, th * tw, 16), (T * M, P, 27),
+                         (3 * P, V, 4), (3 * P, V, 4), (3 * P, V, 2)]):
+        raise AssertionError(f"a backward pass accumulated {shapes}")
+    # every one of the five is compared; a vertex table is named after the
+    # parameter whose gradient it is (the gather's transpose is that
+    # parameter's only contribution, so the bits are equal)
+    acc_inputs = {}
+    for idx, val, R, out in captured:
+        C = val.shape[1]
+        if C in (16, 27):
+            name = {16: "texel", 27: "record"}[C]
+        else:
+            name = "vertex_" + "".join(
+                k for k in ("pos", "color", "uv")
+                if params[k].grad.shape == out.shape
+                and torch.equal(params[k].grad, out))
+        if name in acc_inputs or name == "vertex_":
+            raise AssertionError(f"cannot name the captured call {name!r}, "
+                                 f"C = {C}")
+        acc_inputs[name] = (idx.to(torch.int32), val, R)
+        acc_cases[name] = compare_acc(name, *acc_inputs[name])
+    if sorted(acc_inputs) != ["record", "texel", "vertex_color",
+                              "vertex_pos", "vertex_uv"]:
+        raise AssertionError(f"captured {sorted(acc_inputs)}")
+    acc_err = max(c["max_abs_err"] for c in acc_cases.values())
+    phase("diff_accumulate_vs_plain", equal=True, bit_identical_twice=True,
+          max_abs_err=acc_err, **acc_cases)
+
+    # 17. one step at 256x256 against the committed JAX golden
+    with np.load(check.GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    figs = {}
+    for mode in check.MODES:
+        params, static, cfg = scene(check.train_scene, check.GOLDEN_SIZE,
+                                    mode)
+        slots = int(golden[f"{mode}_slots"])
+        if mode != "hard" and pipeline.auto_slots(params, static,
+                                                  cfg) != slots:
+            raise AssertionError(f"{mode}: auto_slots != the golden's")
+        reset_counts()
+        loss, img, maxw = check.step(params, static, cfg, slots=slots)
+        torch.cuda.synchronize()
+        launched = counts()
+        K = 1 if mode == "hard" else slots
+        if launched != (1 if mode == "hard" else 0, 4 + K):
+            raise AssertionError(f"{mode} step launched {launched}")
+        if int(maxw) != int(golden[f"{mode}_max_writes"]):
+            raise AssertionError(f"{mode}: max_writes {int(maxw)}")
+        got = {"image": img.cpu().numpy(), "loss": float(loss)}
+        for k in check.PARAM_NAMES:
+            got["grad_" + k] = params[k].grad.cpu().numpy()
+        figs[mode] = {"launches": launched, "slots": slots,
+                      **check.compare_to_golden(mode, got, golden,
+                                                prefix=mode + "_")}
+        if mode == "hard":
+            setup, pids, origins = vis_inputs(params, static, cfg)
+            steps, _ = pipeline.visibility_slots(setup, pids, origins, cfg)
+            differ, not_ties = check.winner_differences(
+                setup["edges"], setup["z"], pids, origins, cfg.tile_logsize,
+                steps[..., 0], torch.from_numpy(golden["hard_steps"]).to(dev))
+            if not_ties or differ > check.WINNER_SHARE * steps.numel():
+                raise AssertionError(f"winner steps: {differ} pixels differ "
+                                     f"from the golden, {not_ties} no ties")
+            figs[mode]["winner_pixels_differ"] = differ
+    phase("diff_step_256", size=check.GOLDEN_SIZE, **figs)
+
+    # 18. the full-width training path: 10 plain SGD steps, then optim.fit
+    params, static, cfg = scene(check.train_scene, DIFF_SIZE)
+    start = {k: v.detach().clone() for k, v in params.items()}
+    grads = []
+    for _ in range(2):          # the same parameters twice: the same bits
+        check.step(params, static, cfg)
+        grads.append({k: v.grad.clone() for k, v in params.items()})
+    for k in check.PARAM_NAMES:
+        if not torch.equal(grads[0][k], grads[1][k]):
+            raise AssertionError(f"two runs' gradients of {k} differ")
+    reset_counts()
+    losses = []
+    for i in range(DIFF_STEPS):
+        loss, img, maxw = check.step(params, static, cfg)
+        if i == 0 and counts() != (1, 5):
+            raise AssertionError(f"one step launched {counts()}")
+        with torch.no_grad():
+            for p in params.values():
+                if not bool(torch.isfinite(p.grad).all()):
+                    raise AssertionError("a gradient is not finite")
+                p -= 1e-6 * p.grad
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    sgd_launches = counts()
+    if sgd_launches != (DIFF_STEPS, 5 * DIFF_STEPS):
+        raise AssertionError(f"{DIFF_STEPS} steps launched {sgd_launches}")
+    if not np.isfinite(losses).all() or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"SGD losses not finite and decreasing: "
+                             f"{losses}")
+    if tuple(img.shape) != (DIFF_SIZE, DIFF_SIZE, 4) or int(maxw) != 1:
+        raise AssertionError(f"image {tuple(img.shape)}, max_writes "
+                             f"{int(maxw)}")
+
+    def loss_fn(p):
+        return check.loss_of(pipeline.render_deferred(p, static, cfg)[0], cfg)
+
+    reset_counts()
+    fitted = optim.fit(loss_fn, start, steps=DIFF_STEPS, lr=1e-2)
+    torch.cuda.synchronize()
+    fit_launches = counts()
+    if fit_launches != (DIFF_STEPS, 5 * DIFF_STEPS) or fitted.bad_steps \
+            or len(fitted.losses) != DIFF_STEPS \
+            or not np.isfinite(fitted.losses).all() \
+            or fitted.params["pos"].device.type != dev.type:
+        raise AssertionError(f"optim.fit: launches {fit_launches}, bad steps "
+                             f"{fitted.bad_steps}, losses {fitted.losses}")
+    modes = {}
+    for mode in ("alpha", "soft"):
+        params, static, cfg = scene(check.train_scene, 512, mode)
+        slots = pipeline.auto_slots(params, static, cfg)
+        reset_counts()
+        loss, img, maxw = check.step(params, static, cfg, slots=slots)
+        launched = counts()
+        with torch.no_grad():
+            oracle = pipeline.render(params, static, cfg)
+        finite = all(bool(torch.isfinite(p.grad).all())
+                     for p in params.values())
+        close = torch.isclose(img, oracle, rtol=1e-4, atol=1e-4)
+        if not finite or not bool(torch.isfinite(img).all()) \
+                or int(maxw) > slots or launched != (0, 4 + slots) \
+                or not bool(close.all()):
+            raise AssertionError(
+                f"{mode} 512: finite {finite}, max_writes {int(maxw)} of "
+                f"{slots}, launches {launched}, "
+                f"{int((~close).sum())} values off the oracle")
+        modes[mode] = {"slots": slots, "max_writes": int(maxw),
+                       "launches": launched, "loss": float(loss),
+                       "max_abs_diff_from_render": float(
+                           (img - oracle).abs().max())}
+    phase("diff_train_1024", size=DIFF_SIZE, steps=DIFF_STEPS, tiles=T, M=M,
+          sgd_losses=losses, sgd_launches=sgd_launches,
+          fit_losses=fitted.losses, fit_launches=fit_launches,
+          gradients_bit_identical_twice=True, modes_512=modes)
+
+    # 19. timing (printed, not judged)
+    def covered_steps(setup, pids, origins, cfg):
+        """(pixel-steps over real prims, those of them that are covered)."""
+        ts = 1 << cfg.tile_logsize
+        xs, ys = cuda_vis.tile_coords(ts, origins)
+        covered = 0
+        for pc, _ in cuda_vis.padded_chunks(pids, 32):
+            covered += int(cuda_vis.chunk_edges(setup["edges"], pc, xs,
+                                                ys)[3].sum())
+        return int((pids >= 0).sum()) * ts * ts, covered
+
+    timing = {}
+    params, static, cfg = scene(check.train_scene, DIFF_SIZE)
+    setup, pids, origins = vis_inputs(params, static, cfg)
+    edges, zs = setup["edges"], setup["z"]
+    vis_ms = median_ms(lambda: cuda_vis.visibility_hard(
+        edges, zs, pids, origins, cfg.tile_logsize, True))
+    vis_plain_ms = median_ms(lambda: cuda_vis.visibility_hard_reference(
+        edges, zs, pids, origins, cfg.tile_logsize, True), reps=5, warmup=1)
+    steps, covered = covered_steps(setup, pids, origins, cfg)
+    vis_bound = bound(nbytes(edges, zs, pids, origins) + 4 * T * 1024,
+                      steps * DIFF_VIS_STEP_OPS
+                      + covered * DIFF_VIS_COVERED_OPS)
+    timing["visibility_1024"] = {
+        "kernel_ms": vis_ms, "plain_ms": vis_plain_ms, "T": T, "M": M,
+        "pixel_steps": steps, "covered_steps": covered, "bound": vis_bound}
+    acc_timing = {}
+    for name in ("texel", "record", "vertex_pos", "vertex_uv"):
+        idx, val, R = acc_inputs[name]
+        N, C = val.shape
+        keep = (idx >= 0) & (idx < R)
+        # the library call takes no out-of-range row: it gets the kept ones
+        idx64, val_kept = idx[keep].long(), val[keep]
+        acc_timing[name] = {
+            "N": N, "R": R, "C": C,
+            "kernel_ms": median_ms(
+                lambda: cuda_texgrad.accumulate_rows(idx, val, R)),
+            "plain_ms": acc_cases[name]["plain_ms"],
+            "library_ms": median_ms(lambda: torch.zeros(
+                (R, C), dtype=torch.float32, device=dev).index_add_(
+                    0, idx64, val_kept)),
+            # the function's bound: idx and val read once, the table
+            # written once, one add a kept value's column (the record
+            # class's list padding, idx -1, is dropped) ...
+            "bound": bound(N * (4 + 4 * C) + 4 * R * C, int(keep.sum()) * C),
+            # ... and, beside it, what this owner-computes algorithm adds:
+            # one int32 compare a (row, value) pair
+            "algorithm_ops": R * N,
+            "algorithm_ops_ms": R * N / INT32_OPS_PER_S * 1e3}
+    timing["accumulate_1024"] = acc_timing
+    for size in (512, DIFF_SIZE):
+        params, static, cfg = scene(check.train_scene, size)
+
+        def forward():
+            img, _ = pipeline.render_deferred(params, static, cfg)
+            return check.loss_of(img, cfg)
+
+        fwd_ms = median_ms(forward)
+        step_ms = median_ms(lambda: check.step(params, static, cfg))
+        bwd = []
+        for _ in range(REPS):
+            for p in params.values():
+                p.grad = None
+            loss = forward()
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            loss.backward()
+            t1.record()
+            t1.synchronize()
+            bwd.append(t0.elapsed_time(t1))
+        timing[f"step_{size}"] = {
+            "forward_ms": fwd_ms, "backward_ms": float(np.median(bwd)),
+            "step_ms": step_ms, "mpix_per_s": size * size / step_ms / 1e3}
+    phase("diff_timing", card=card, reps=REPS, **timing)
+
+    tex = acc_timing["texel"]
+    return [{
+        "name": "diff_visibility", "route": "cuda",
+        "source": "skybox_rt_tpu_torch/csrc/diff_visibility.cu",
+        "replaces": "skybox_rt_tpu/diff/pallas_vis.py:67",
+        "launches": sgd_launches[0], "max_abs_err": vis_err, "ms": vis_ms,
+        "plain_ms": vis_plain_ms, **vis_bound,
+        "library_ms": None,     # no single PyTorch call computes this
+        "steps": DIFF_STEPS, "tiles": T, "M": M}, {
+        "name": "diff_accumulate", "route": "cuda",
+        "source": "skybox_rt_tpu_torch/csrc/diff_accumulate.cu",
+        "replaces": "skybox_rt_tpu/diff/pallas_texgrad.py:41",
+        "launches": sgd_launches[1], "max_abs_err": acc_err,
+        "ms": tex["kernel_ms"], "plain_ms": tex["plain_ms"], **tex["bound"],
+        "algorithm_ops": tex["algorithm_ops"],
+        "algorithm_ops_ms": tex["algorithm_ops_ms"],
+        "library_ms": tex["library_ms"],    # zeros(R, C).index_add_(0, ...)
+        "steps": DIFF_STEPS, "shape": "texel table: N, R, C = "
+        f"{tex['N']}, {tex['R']}, {tex['C']}",
+        "step_ms": {n: c["kernel_ms"] for n, c in acc_timing.items()},
+        "step_bound_ms": {n: c["bound"]["bound_ms"]
+                          for n, c in acc_timing.items()},
+        "step_algorithm_ops_ms": {n: c["algorithm_ops_ms"]
+                                  for n, c in acc_timing.items()},
+        "step_library_ms": {n: c["library_ms"]
+                            for n, c in acc_timing.items()}}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1070,7 +1500,8 @@ def main() -> int:
         "mpix_per_s": SIZE * SIZE * draws / frame_ms / 1e3}
     phase("timing", card=card, reps=REPS, **timings)
 
-    rt_entries = rt_phases(dev, card) + small_phases(dev, card)
+    rt_entries = (rt_phases(dev, card) + small_phases(dev, card)
+                  + diff_phases(dev, card))
 
     print(card)
     p256 = timings["pass1_256"]

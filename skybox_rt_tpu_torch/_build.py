@@ -6,9 +6,10 @@ takes seconds.  Each source is compiled by an ``nvcc`` of its own, all
 started together, and the objects are linked into one library.  It lands in
 ``skybox_rt_tpu_torch/_build/`` and is keyed by a hash of the sources and
 flags, so an edited source rebuilds.  Flags keep IEEE float32 division and no
-FMA contraction, which the exact-int raster path (csrc/raster_visibility.cu)
-and the ray queries' agreement with their plain versions (csrc/rt_bvh.cu,
-csrc/rt_clustered.cu) need; fast math is never used.
+FMA contraction, which the exact-int raster path (csrc/raster_visibility.cu),
+the ray queries' agreement with their plain versions (csrc/rt_bvh.cu,
+csrc/rt_clustered.cu) and the float visibility's (csrc/diff_visibility.cu)
+need; fast math is never used.
 """
 from __future__ import annotations
 
@@ -48,6 +49,10 @@ _SIGNATURES = {
     "skybox_rt_any_hit_clustered": [_P] * 6 + [_I, _F, _I] + [_P] * 2,
     # o d tmax tri, P, t_min, R, prim t u v, the stream
     "skybox_rt_closest_hit_flat": [_P] * 4 + [_I, _F, _I] + [_P] * 5,
+    # edges z tile_pids origins out, T M tile_logsize depth_test, the stream
+    "skybox_diff_visibility_hard": [_P] * 5 + [_I] * 4 + [_P],
+    # idx val partial out, N R C S L, the stream
+    "skybox_diff_accumulate_rows": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -2,11 +2,11 @@
 
 The renderer's "weights" are the trace, the binned arrays, the resolved
 render state and the texel table; the ray tracer's are the scene, its BVH,
-the treelet blocks or clusters, the camera and the config.  These helpers rebuild the
-port's objects
-from the JAX package's by reading attributes and numpy arrays only — this
-module never imports jax or skybox_rt_tpu — so a test can feed both
-packages exactly the same state.
+the treelet blocks or clusters, the camera and the config; the differentiable
+pipeline's are the parameter and binning dicts.  These helpers rebuild the
+port's objects from the JAX package's by reading attributes and numpy arrays
+only — this module never imports jax or skybox_rt_tpu — so a test can feed
+both packages exactly the same state.
 """
 from __future__ import annotations
 
@@ -16,7 +16,9 @@ import numpy as np
 import torch
 
 from .core import fixed
+from .core.device import resolve_device
 from .core.state import RenderState, ShaderFlags
+from .diff import pipeline as diff_pipeline
 from .geom import binning, cgltrace
 from .om.blend import BlendState
 from .om.depth_stencil import DepthStencilState
@@ -170,3 +172,28 @@ def rt_config_from_reference(obj) -> tracer.RTConfig:
     the port has no kernels for is kept, and fails where the intersectors
     are made."""
     return _copy_fields(tracer.RTConfig, obj)
+
+
+def diff_params_from_reference(params, device=None) -> dict:
+    """The differentiable pipeline's parameter dict (``pos``, ``color``,
+    ``uv``, ``tex``; JAX or numpy arrays) -> float32 tensors on ``device``
+    (None: the CUDA card).  They do not require grad: ``diff.optim.fit``
+    makes its own leaves, a caller of ``render_deferred`` sets it."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+            for k, v in params.items()}
+
+
+def diff_static_from_reference(static, device=None) -> dict:
+    """The dict of ``diff.binning.bin_static`` (``indices``, ``tile_pids``,
+    ``tile_xy``; JAX or numpy arrays) -> int32 tensors on ``device`` (None:
+    the CUDA card)."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, np.int32)).to(dev)
+            for k, v in static.items()}
+
+
+def diff_config_from_reference(obj) -> diff_pipeline.DiffRenderConfig:
+    """A JAX-package DiffRenderConfig -> the port's, field by field."""
+    return _copy_fields(diff_pipeline.DiffRenderConfig, obj,
+                        background=tuple(float(x) for x in obj.background))

@@ -14,6 +14,36 @@ import numpy as np
 F32 = np.float32
 
 
+def triangle(z=0.2):
+    """One triangle with red, green and blue corners: (dict of pos (3, 4),
+    color (3, 4), uv (3, 2), indices (1, 3))."""
+    pos = np.array([
+        [-0.5, -0.5, z, 1.0],
+        [0.5, -0.5, z, 1.0],
+        [0.0, 0.5, z, 1.0],
+    ], F32)
+    color = np.array([
+        [1, 0, 0, 1],
+        [0, 1, 0, 1],
+        [0, 0, 1, 1],
+    ], F32)
+    uv = np.array([[0, 0], [1, 0], [0.5, 1]], F32)
+    indices = np.array([[0, 1, 2]], np.int32)
+    return dict(pos=pos, color=color, uv=uv), indices
+
+
+def quad(z=0.5, scale=0.8):
+    """Two-triangle textured quad."""
+    s = scale
+    pos = np.array([
+        [-s, -s, z, 1.0], [s, -s, z, 1.0], [s, s, z, 1.0], [-s, s, z, 1.0],
+    ], F32)
+    color = np.ones((4, 4), F32)
+    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], F32)
+    indices = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    return dict(pos=pos, color=color, uv=uv), indices
+
+
 def checkerboard_texture(size=64, tiles=8):
     """RGBA float checkerboard."""
     y, x = np.mgrid[0:size, 0:size]

@@ -1,7 +1,8 @@
 """The port stands without JAX: importing every module of
-skybox_rt_tpu_torch and rendering a raster and a ray-traced frame on the CPU
-loads neither jax nor
-skybox_rt_tpu, and chip_smoke.py refuses to run without a card."""
+skybox_rt_tpu_torch, rendering a raster and a ray-traced frame and taking
+training steps of the differentiable render on the CPU loads neither jax,
+optax, orbax nor skybox_rt_tpu, and chip_smoke.py refuses to run without a
+card."""
 import importlib.util
 import json
 import os
@@ -42,13 +43,20 @@ img = tracer.render(scene, tracer.Camera(eye=(0, 0.5, 3), look_at=(0, 0, 0)),
 small = tracer.render(scene, tracer.Camera(eye=(0, 0.5, 3), look_at=(0, 0, 0)),
                       tracer.RTConfig(width=16, height=16, bounces=1,
                                       shadows=True), device="cpu")
+from skybox_rt_tpu_torch.diff import check, optim, pipeline
+params, static, cfg = check.train_scene(32, subdiv=1, tile_logsize=3,
+                                        tex_size=8, tex_tiles=2)
+params, static = check.to_device(params, static, "cpu")
+fit = optim.fit(lambda p: check.loss_of(
+    pipeline.render_deferred(p, static, cfg)[0], cfg), params, steps=3)
 loaded = sorted(k for k in sys.modules
-                if k == "jax" or k.startswith(("jax.", "jaxlib"))
-                or k == "skybox_rt_tpu" or k.startswith("skybox_rt_tpu."))
+                if k.split(".")[0] in ("jax", "jaxlib", "optax", "orbax",
+                                       "skybox_rt_tpu"))
 print(json.dumps({"loaded": loaded, "shape": list(fb.shape),
                   "dtype": str(fb.dtype), "rt_shape": list(img.shape),
                   "rt_hits": int((img[..., :3].sum(-1) > 0).sum()),
-                  "rt_default_engine_diff": float((small - img).abs().max())}))
+                  "rt_default_engine_diff": float((small - img).abs().max()),
+                  "fit_losses": fit.losses}))
 """
 
 
@@ -71,7 +79,8 @@ def test_every_module_listed():
     for m in ("core.fixed", "ops.cuda_raster", "ops.deferred", "ref.driver",
               "interop", "_build", "models.make_synth_trace", "core.device",
               "rt.tracer", "rt.bvh", "rt.intersect", "rt.wavefront",
-              "ops.cuda_rt", "diff.pipeline"):
+              "ops.cuda_rt", "diff.pipeline", "diff.binning", "diff.cuda_vis",
+              "diff.cuda_texgrad", "diff.optim", "diff.check"):
         assert f"skybox_rt_tpu_torch.{m}" in MODULES
 
 
@@ -81,10 +90,14 @@ def test_no_jax_after_import_and_render(probe):
     assert probe["rt_shape"] == [16, 16, 4] and probe["rt_hits"] > 20
     # the default engine (the clustered pair) against the all-pairs oracle
     assert probe["rt_default_engine_diff"] <= 2e-5
+    # three Adam steps of the differentiable render, each one downhill
+    losses = probe["fit_losses"]
+    assert len(losses) == 3 and losses[2] < losses[1] < losses[0]
 
 
 _BAD_IMPORT = re.compile(
-    r"^\s*(import|from)\s+(jax|jaxlib|skybox_rt_tpu)(\.|\s|$)", re.M)
+    r"^\s*(import|from)\s+(jax|jaxlib|optax|orbax|skybox_rt_tpu)(\.|\s|$)",
+    re.M)
 
 
 @pytest.mark.parametrize("path", MODULES + ["chip_smoke"])
@@ -144,12 +157,14 @@ def test_ctypes_signatures_match_the_sources():
     found = _c_interface()
     assert sorted(found) == sorted(_build._SIGNATURES)
     assert {"skybox_rt_closest_hit_clustered", "skybox_rt_any_hit_clustered",
-            "skybox_rt_closest_hit_flat"} <= set(found)
+            "skybox_rt_closest_hit_flat", "skybox_diff_visibility_hard",
+            "skybox_diff_accumulate_rows"} <= set(found)
     for name, kinds in found.items():
         assert kinds == _build._SIGNATURES[name], name
     names = {os.path.basename(s) for s in _build._sources()}
     assert names == {"raster_visibility.cu", "rt_bvh.cu", "rt_clustered.cu",
-                     "rt_common.cuh"}
+                     "rt_common.cuh", "diff_visibility.cu",
+                     "diff_accumulate.cu"}
 
 
 def test_package_data_ships_every_source():
