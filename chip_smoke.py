@@ -1,7 +1,8 @@
-"""Drive the PyTorch port's four paths on one CUDA card and check them: the
+"""Drive the PyTorch port's five paths on one CUDA card and check them: the
 exact-int draw3d raster frame, the ray-traced frame of the large scene, the
-ray-traced frame of the small scene, and the training step of the
-differentiable render.
+ray-traced frame of the small scene, the training step of the differentiable
+render, and the ray-traced CGLTrace frame (config 3), with the two comparison
+engines of the ray tracer beside it.
 
     python3 chip_smoke.py
 
@@ -118,6 +119,56 @@ exits non-zero, and only a run where every phase passed prints the final
                forward, backward and whole step at 512x512 and 1024x1024,
                Mpix/s = size^2 / step time
 
+  20. rt_after_vs_plain — the next-hit-after kernel against its plain torch
+               version, bit for bit (``rays_differ`` must be 0): the check
+               soups whole (an exact duplicate triangle, a coplanar grid whose
+               rays meet up to eight triangles at exactly t = 1, parked rays, a
+               per-ray t_max), every walk fed from the one before; then every
+               walk of every K-slot draw of the real 1024x1024 config-3 frame
+               on a 65,536-ray sample, and walk 1 and the last walk on all
+               1,048,576 rays; walk 1 from (-inf, -1) equal to the closest-hit
+               kernel on the same blocks
+  21. rt_config3_128 — rt.frame.render_trace_rt_fused on the default device,
+               data/synth_config3.npz at 128x128, against the committed JAX
+               golden (data/synth_config3_128.npz: color, zbuf, the plan's
+               modes, K and P): >= 99.9 % of the values within 2e-5, and every
+               pixel beyond 1e-4 a graze or a tie in the port's own
+               enumeration (rt.frame.fragment_margins under 1e-4; their count
+               is printed); zbuf within 2e-5; against the port's scan oracle
+               on the card within 1e-3; launches a frame: the closest-hit
+               kernel once a ``winner`` draw, the next-hit-after kernel K (+ 1
+               probe) times a ``kslot`` draw, none a ``scan`` draw
+  22. rt_config3_1024 — the full-width frame, 1,048,576 rays, from a trace
+               with no hints: the K hints converge within 8 rounds, none
+               below the 128x128 ones; the frame call runs under
+               torch.cuda.set_sync_debug_mode("error"), so a wait for the
+               device or a copy from the host between the first and the last
+               draw fails it; the counts are set to 0 just before it and read
+               just after, the overflow tensor read once after that (all 0);
+               finite, every value in [0, 1], the 8x8 cell means near the
+               golden's pixels; a second make_frame_fn returns the cached plan
+  23. rt_diff — rt.diff.render_lambert (per-ray-stack BVH) and
+               render_lambert_soft forward and backward on the card, 16,384
+               rays on a 1,280-triangle scene: finite, image within 2e-5 and
+               gradients within 1e-4 of their largest value of the CPU run of
+               the same code, two runs' gradients bit-identical, the
+               accumulation kernel's launches counted
+  24. rt_streamed_worklist — the streamed and worklist closest-hit kernels
+               against their plain versions, bit for bit, on the check scenes
+               and on 65,536 rays of each of the six launches of the small
+               scene's 1024x1024 frame and on its whole primary launch; equal
+               to each other and to the clustered kernel on every ray, against
+               the flat kernel tie-aware; both engines' 1024x1024 frames: 3 + 3
+               launches of their kernel (the closest hit, and the closest hit
+               inside the bound as the occlusion query), image equal to the
+               clustered frame's (max |diff| 0)
+  25. rt_config3_timing — CUDA events, median of 20: every walk of every K-slot
+               draw, the closest-hit kernel on the ``winner`` draws, one scan
+               draw, the whole frame at 512x512 and 1024x1024; the streamed and
+               worklist kernels on the small scene's primary launch beside the
+               clustered and the flat one, the worklist's prepass apart from
+               its kernel, the three engines' frames
+
 The ``kernels`` line gives each kernel's time beside its bound, both terms
 of it: ``bound_bytes_ms`` (inputs read once, outputs written once; holds
 for any algorithm) and ``bound_ops_ms`` (the operations this algorithm did
@@ -137,6 +188,12 @@ which the port never calls on a CUDA tensor.  Its ``bound_ms`` is the
 function's own (the bytes, and one add a kept value's column); the R * N
 row compares that the owner-computes algorithm spends on top are printed
 apart, as ``algorithm_ops`` and ``algorithm_ops_ms``, and enter no bound.
+
+The next-hit-after entry gives walk 1 of the largest K-slot draw (the
+5,080-triangle shell) on all rays; ``walk_ms`` lists every walk of every such
+draw, ``frame_ms`` their sum, ``launches`` the frame's count.  The streamed and
+worklist entries give the small scene's primary launch; the worklist's
+``prepass_ms`` is its plain-torch prepass, which the bound leaves out.
 
 The script imports no JAX: the references it checks against are committed
 files (skybox_rt_tpu_torch/data/).
@@ -585,6 +642,26 @@ def rt_phases(dev, card) -> list:
     return entries
 
 
+def differ(got, want):
+    """(rays on which any output of a query differs from `want`, the largest
+    |got - want| over the outputs: equal infinities give 0 and a bool counts
+    as 0 or 1)."""
+    if torch.is_tensor(got):
+        got, want = (got,), (want,)
+    bad = torch.zeros(got[0].shape, dtype=torch.bool, device=got[0].device)
+    err = 0.0
+    for g, w in zip(got, want, strict=True):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{g.dtype} {tuple(g.shape)} vs "
+                                 f"{w.dtype} {tuple(w.shape)}")
+        ne = g != w
+        if bool(ne.any()):
+            err = max(err, float((g[ne].double() - w[ne].double())
+                                 .abs().max()))
+        bad |= ne
+    return int(bad.sum()), err
+
+
 def small_scene(textured=False):
     """The small-scene ray-traced workload: the 12,032-triangle sphere field
     (at most tracer.PALLAS_MAX_TRIS, so the default engine takes the
@@ -622,25 +699,6 @@ def small_phases(dev, card) -> list:
         clusters = cuda_rt.prepare_clusters(
             *tri, bvh_mod.build_clusters(bvh, max_tris))
         return clusters, cuda_rt.pack_records(*tri)
-
-    def differ(got, want):
-        """(rays on which any output of a query differs from `want`, the
-        largest |got - want| over the outputs: equal infinities give 0 and
-        a bool counts as 0 or 1)."""
-        if torch.is_tensor(got):
-            got, want = (got,), (want,)
-        bad = torch.zeros(got[0].shape, dtype=torch.bool, device=dev)
-        err = 0.0
-        for g, w in zip(got, want, strict=True):
-            if g.dtype != w.dtype or g.shape != w.shape:
-                raise AssertionError(f"{g.dtype} {tuple(g.shape)} vs "
-                                     f"{w.dtype} {tuple(w.shape)}")
-            ne = g != w
-            if bool(ne.any()):
-                err = max(err, float((g[ne].double() - w[ne].double())
-                                     .abs().max()))
-            bad |= ne
-        return int(bad.sum()), err
 
     def compare(kind, o, d, tm, clusters, flat, stats=None, flat_plain=True):
         """The clustered and the flat kernel against their plain versions on
@@ -1322,6 +1380,527 @@ def diff_phases(dev, card) -> list:
                             for n, c in acc_timing.items()}}]
 
 
+C3_GOLDEN_SIZE = 128    # the size of the committed JAX golden of config 3
+C3_SIZE = 1024          # the full-width config-3 frame
+
+
+def config3_phases(dev, card) -> list:
+    """Phases 20 to 25: the ray-traced CGLTrace frame (config 3), rt.diff and
+    the two comparison engines; returns the entries of the kernels line for
+    the next-hit-after, streamed and worklist kernels."""
+    import math
+
+    from skybox_rt_tpu_torch.diff import cuda_texgrad
+    from skybox_rt_tpu_torch.geom import cgltrace
+    from skybox_rt_tpu_torch.models import scenes
+    from skybox_rt_tpu_torch.ops import cuda_rt
+    from skybox_rt_tpu_torch.rt import bvh as bvh_mod
+    from skybox_rt_tpu_torch.rt import diff as rt_diff
+    from skybox_rt_tpu_torch.rt import frame as frame_mod
+    from skybox_rt_tpu_torch.rt import intersect, tracer
+    from skybox_rt_tpu_torch.rt import raster_bridge as rb
+
+    def on_card(a):
+        return None if a is None else torch.as_tensor(np.array(a), device=dev)
+
+    def start(R):
+        return (torch.full((R,), -math.inf, dtype=torch.float32, device=dev),
+                torch.full((R,), -1, dtype=torch.int32, device=dev))
+
+    def compare_walks(o, d, tm, blocks, walks, plain_on=None, stats=None):
+        """`walks` walks of the kernel fed back into each other; walk k of
+        plain_on (all of them when None) against the plain version from the
+        same carry, bit for bit.  Returns ([kernel outputs a walk], rays
+        that differ, max |diff|, [plain seconds of the compared walks])."""
+        tlo, slo = start(o.shape[0])
+        outs, bad, err, plain_s = [], 0, 0.0, []
+        for k in range(walks):
+            got = cuda_rt.closest_hit_bvh_after(o, d, blocks, tlo, slo,
+                                                t_max=tm, t_min=1e-6)
+            if plain_on is None or k in plain_on:
+                want, sec = timed(
+                    lambda: cuda_rt.closest_hit_bvh_after_reference(
+                        o, d, blocks, tlo, slo, tm, 1e-6,
+                        stats=None if stats is None else
+                        stats.setdefault(k, {})))
+                n, e = differ(got, want)
+                bad, err = bad + n, max(err, e)
+                plain_s.append(sec)
+            outs.append(got)
+            tlo, slo = got[2], got[0]
+        if bad:
+            raise AssertionError(f"closest_hit_bvh_after != plain version on "
+                                 f"{bad} rays, max |diff| {err}")
+        return outs, bad, err, plain_s
+
+    # 20a. the check soups, whole: every walk against the plain version
+    soups = {}
+    for name in scenes.AFTER_CHECK_SOUPS:
+        v0, e1, e2, tri_block, o, d, tm, walks = scenes.after_check_queries(
+            name)
+        verts, faces = scenes.soup_mesh(v0, e1, e2)
+        blocks = cuda_rt.prepare_bvh_blocks(
+            on_card(v0), on_card(e1), on_card(e2), bvh_mod.build_block_set(
+                bvh_mod.build_sah(verts, faces), tri_block=tri_block))
+        outs, bad, err, _ = compare_walks(on_card(o), on_card(d), on_card(tm),
+                                          blocks, walks)
+        hits = [int((g[1] >= 0).sum()) for g in outs]
+        if hits[0] == 0 or hits[-1] != 0:
+            raise AssertionError(f"{name}: hits a walk {hits}")
+        first = cuda_rt.closest_hit_bvh(on_card(o), on_card(d), blocks,
+                                        t_max=on_card(tm), t_min=1e-6)
+        if differ(outs[0][1:], first)[0]:
+            raise AssertionError(f"{name}: walk 1 != closest_hit_bvh")
+        ts = torch.stack([g[2] for g in outs], 1)
+        fin = torch.isfinite(ts[:, 1:])
+        soups[name] = {"walks": walks, "hits_a_walk": hits,
+                       "rays_differ": bad,
+                       "tied_steps": int(((ts[:, 1:] == ts[:, :-1])
+                                          & fin).sum())}
+        if soups[name]["tied_steps"] == 0:
+            raise AssertionError(f"{name}: no hit of equal t was enumerated")
+
+    # 21. the golden's size: the frame against the committed JAX golden and
+    # against the port's scan oracle on the card
+    with np.load(os.path.join(
+            cgltrace.DATA_DIR, f"synth_config3_{C3_GOLDEN_SIZE}.npz")) as z:
+        golden = {k: z[k] for k in z.files}
+    n = C3_GOLDEN_SIZE
+    trace = cgltrace.load_trace(cgltrace.trace_path("synth_config3"))
+    img = frame_mod.render_trace_rt_fused(trace, n, n)
+    fn, arrays, rays, metas = frame_mod.make_frame_fn(trace, n, n)
+    if rays[0].device.type != "cuda":
+        raise AssertionError("rt.frame.make_frame_fn did not default to the "
+                             "card")
+    plan = [(m["draw_index"], m["mode"], m["K"], m["P"]) for m in metas]
+    if [p[1] for p in plan] != list(golden["modes"]) \
+            or [p[2] for p in plan] != list(golden["K"]) \
+            or [p[3] for p in plan] != list(golden["P"]):
+        raise AssertionError(f"plan {plan} != the JAX golden's "
+                             f"{list(golden['modes'])} {list(golden['K'])}")
+    cuda_rt.reset_launch_counts()
+    zbuf, color, ovf = fn(arrays, *rays)
+    torch.cuda.synchronize()
+    want_launches = {
+        "closest_hit_bvh": sum(m["mode"] == "winner" for m in metas),
+        "closest_hit_bvh_after": sum(
+            m["K"] + (m["K"] < m["P"]) for m in metas if m["mode"] == "kslot")}
+    if dict(cuda_rt.launch_counts) != want_launches or bool(ovf.any()):
+        raise AssertionError(f"{n} frame launched "
+                             f"{dict(cuda_rt.launch_counts)}, expected "
+                             f"{want_launches}; overflow {ovf.tolist()}")
+    if not np.array_equal(color.reshape(n, n, 4).cpu().numpy(), img):
+        raise AssertionError("two frames of one plan differ")
+    diff = np.abs(img - golden["color"])
+    far = (diff > 1e-4).any(-1)
+    within = float((diff <= 2e-5).mean())
+    margins = frame_mod.fragment_margins(trace, n, n)
+    unexplained = int((far & ~(margins < 1e-4)).sum())
+    if within < 0.999 or unexplained:
+        raise AssertionError(
+            f"{n} frame != JAX golden: {within} of the values within 2e-5, "
+            f"{unexplained} pixels beyond 1e-4 with no graze or tie")
+    zb = zbuf.reshape(n, n).cpu().numpy()
+    finite = np.isfinite(golden["zbuf"])
+    if not np.array_equal(np.isfinite(zb), finite) or np.abs(
+            zb[finite] - golden["zbuf"][finite]).max() > 2e-5:
+        raise AssertionError(f"{n} frame: zbuf != JAX golden")
+    oracle, oracle_s = timed(lambda: rb.render_trace_rt(
+        trace, n, n, engine="brute", camera="perspective"))
+    oracle_diff = float(np.abs(img - oracle).max())
+    if oracle_diff > 1e-3:
+        raise AssertionError(f"{n} frame != scan oracle: {oracle_diff}")
+    phase(f"rt_config3_{n}", size=n, plan=plan, launches=want_launches,
+          max_abs_diff_jax=float(diff.max()),
+          values_beyond_2e5=int((diff > 2e-5).sum()), values=int(diff.size),
+          graze_or_tie_pixels_beyond_1e4=int(far.sum()),
+          max_abs_diff_scan_oracle=oracle_diff, scan_oracle_s=oracle_s)
+
+    # 22. the full-width frame: the main path.  A new trace object has no
+    # hints: the retry converges from K = 1.
+    N = C3_SIZE
+    trace = cgltrace.load_trace(cgltrace.trace_path("synth_config3"))
+    rounds = []
+    make = frame_mod.make_frame_fn
+
+    def counting(*a, **kw):
+        rounds.append(1)
+        return make(*a, **kw)
+
+    frame_mod.make_frame_fn = counting
+    try:
+        img, first_s = timed(
+            lambda: frame_mod.render_trace_rt_fused(trace, N, N))
+    finally:
+        frame_mod.make_frame_fn = make
+    fn, arrays, rays, metas = frame_mod.make_frame_fn(trace, N, N)
+    ks = [m["K"] for m in metas]
+    # a finer grid meets more rays that pass exactly through a shared edge,
+    # where both neighbours count: K may exceed the golden size's, never
+    # fall below it
+    if len(rounds) > 8 or any(k < g for k, g in zip(ks, golden["K"])) \
+            or [m["mode"] for m in metas] != list(golden["modes"]):
+        raise AssertionError(f"1024 frame: {len(rounds)} rounds, K {ks}, the "
+                             f"golden's {golden['K'].tolist()}")
+    want_launches = {
+        "closest_hit_bvh": sum(m["mode"] == "winner" for m in metas),
+        "closest_hit_bvh_after": sum(
+            m["K"] + (m["K"] < m["P"]) for m in metas if m["mode"] == "kslot")}
+    torch.cuda.synchronize()
+    cuda_rt.reset_launch_counts()
+    # a wait for the device or a copy from the host inside the frame raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        zbuf, color, ovf = fn(arrays, *rays)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = dict(cuda_rt.launch_counts)        # read just after the frame
+    ovf = ovf.cpu().numpy()                     # the one readback
+    if counts != want_launches or ovf.any() \
+            or len(ovf) != len(frame_mod.probed_draws(metas)):
+        raise AssertionError(f"1024 frame launched {counts}, expected "
+                             f"{want_launches}; overflow {ovf.tolist()}")
+    color = color.reshape(N, N, 4)
+    if color.dtype != torch.float32 or not bool(torch.isfinite(color).all()) \
+            or float(color.min()) < 0.0 or float(color.max()) > 1.0:
+        raise AssertionError("1024 frame: a value is not finite or leaves "
+                             "[0, 1]")
+    if not np.array_equal(color.cpu().numpy(), img):
+        raise AssertionError("1024 frame: two frames of one plan differ")
+    # 1024 / 128 = 8: the golden's pixel centres are not rays of this frame;
+    # the mean over each 8 x 8 cell is held to the golden's pixel loosely
+    cells = color.reshape(n, N // n, n, N // n, 4).mean((1, 3)).cpu().numpy()
+    cell_diff = float(np.abs(cells - golden["color"]).mean())
+    if cell_diff > 0.02:
+        raise AssertionError(f"1024 frame is not the {n} frame's image: "
+                             f"mean |cell - pixel| {cell_diff}")
+    (again, _), cached_s = timed(lambda: (frame_mod.make_frame_fn(
+        trace, N, N), None))
+    if again[0] is not fn:
+        raise AssertionError("the second make_frame_fn built a new plan")
+    phase("rt_config3_1024", rays=N * N, rounds=len(rounds), K=ks,
+          K_at_golden_size=golden["K"].tolist(),
+          plan=[(m["draw_index"], m["mode"], m["K"], m["P"]) for m in metas],
+          launches=counts, overflow=ovf.tolist(), finite=True,
+          no_sync_in_frame=True, mean_rgba=[float(x) for x in
+                                            color.mean((0, 1))],
+          mean_abs_cell_diff_from_golden=cell_diff,
+          host_s={"first_render_with_retry": first_s,
+                  "make_frame_fn_cached": cached_s})
+
+    # 20b. every walk of every kslot draw of that frame on a 65,536-ray
+    # sample, walk 1 and the last walk on all rays; walk 1 == kernel #2
+    nx, ny = rays
+    dirs = torch.stack([nx, ny, torch.ones_like(nx)], -1).contiguous()
+    eye = torch.zeros_like(dirs)
+    stride = N * N // RT_SAMPLE
+    ds_, es_ = dirs[::stride].contiguous(), eye[::stride].contiguous()
+    draws, largest, entry_stats = {}, None, None
+    after_err, after_bad = 0.0, 0
+    for meta, arr in zip(metas, arrays):
+        if meta["mode"] != "kslot":
+            continue
+        blocks = arr["blocks"]
+        walks = meta["K"] + (meta["K"] < meta["P"])
+        stats = {}
+        outs, bad, err, plain_s = compare_walks(es_, ds_, None, blocks, walks,
+                                                stats=stats)
+        full_stats = {}
+        full, bad2, err2, full_s = compare_walks(
+            eye, dirs, None, blocks, walks, plain_on={0, walks - 1},
+            stats=full_stats)
+        first = cuda_rt.closest_hit_bvh(eye, dirs, blocks, t_min=1e-6)
+        if differ(full[0][1:], first)[0]:
+            raise AssertionError(f"draw {meta['draw_index']}: walk 1 != "
+                                 f"closest_hit_bvh on the same blocks")
+        after_err = max(after_err, err, err2)
+        after_bad += bad + bad2
+        draws[meta["draw_index"]] = {
+            "P": meta["P"], "K": meta["K"], "walks": walks,
+            "blocks": blocks["num_blocks"],
+            "hits_a_walk_sample": [int((g[1] >= 0).sum()) for g in outs],
+            "tri_tests_per_ray": [stats[k]["tri_tests"] / RT_SAMPLE
+                                  for k in range(walks)],
+            "blocks_entered_per_ray": [stats[k]["slab_pass"] / RT_SAMPLE
+                                       for k in range(walks)],
+            "plain_ms_sample": [x * 1e3 for x in plain_s],
+            "plain_ms_all_rays_first_last": [x * 1e3 for x in full_s],
+            "rays_differ": bad + bad2}
+        if largest is None or meta["P"] > largest[0]["P"]:
+            largest, entry_stats = (meta, arr), (full_stats, full_s)
+    phase("rt_after_vs_plain", soups=soups, draws=draws, equal=True,
+          sample_rays=RT_SAMPLE, rays_differ=after_bad,
+          max_abs_err=after_err)
+    meta, arr = largest
+    blocks = arr["blocks"]
+    st0 = entry_stats[0][0]
+    after_entry = {
+        "name": "rt_closest_hit_bvh_after", "route": "cuda",
+        "source": "skybox_rt_tpu_torch/csrc/rt_bvh.cu",
+        "replaces": "skybox_rt_tpu/ops/pallas_rt.py:1323",
+        "launches": counts["closest_hit_bvh_after"], "max_abs_err": after_err,
+        "ms": None, "plain_ms": entry_stats[1][0] * 1e3,
+        **bound(nbytes(eye, dirs, blocks["tri"], blocks["bcnt"],
+                       blocks["s2p"], blocks["aabb"]) + (8 + 20) * N * N,
+                st0["tri_tests"] * MT_OPS + st0["slab_pass"] * SLAB_OPS),
+        "library_ms": None,     # no single PyTorch call computes this
+        "rays": N * N, "rays_differ": after_bad,
+        "draw": meta["draw_index"], "triangles": meta["P"],
+        "tri_tests_per_ray": st0["tri_tests"] / (N * N),
+        "blocks_entered_per_ray": st0["slab_pass"] / (N * N)}
+
+    # 23. rt.diff on the card: forward and backward, against the CPU run of
+    # the same code, twice
+    verts, faces = scenes.multi_sphere(n=4, subdiv=2)
+    rng = np.random.default_rng(4)
+    vcol = rng.uniform(0.2, 1.0, size=(verts.shape[0], 4)).astype(np.float32)
+    o, d = scenes.aimed_rays(16384, seed=21)
+    wts = rng.uniform(0.5, 1.5, size=(o.shape[0], 3)).astype(np.float32)
+    light = (0.4, 0.8, 0.45)
+    bvh = bvh_mod.build(verts, faces)
+
+    def run(which, device):
+        v = torch.tensor(verts, device=device, requires_grad=True)
+        c = torch.tensor(vcol, device=device, requires_grad=True)
+        if which == "lambert":
+            img = rt_diff.render_lambert(
+                v, faces, c, o, d, light, bvh.as_device_arrays(device),
+                device=device)
+        else:
+            img = rt_diff.render_lambert_soft(v, faces, c, o, d, light, K=4,
+                                              device=device)
+        (img * torch.as_tensor(wts, device=device)).sum().backward()
+        return img.detach(), v.grad, c.grad
+
+    diff_figs = {}
+    for which in ("lambert", "lambert_soft"):
+        cuda_texgrad.reset_launch_count()
+        (img_a, gv_a, gc_a), card_s = timed(lambda: run(which, dev))
+        launches = cuda_texgrad.launch_count
+        img_b, gv_b, gc_b = run(which, dev)
+        if not (torch.equal(gv_a, gv_b) and torch.equal(gc_a, gc_b)):
+            raise AssertionError(f"rt.diff {which}: two runs' gradients "
+                                 f"differ")
+        if cuda_texgrad.launch_count != 2 * launches or launches == 0:
+            raise AssertionError(f"rt.diff {which}: accumulation launches "
+                                 f"{launches}, then "
+                                 f"{cuda_texgrad.launch_count - launches}")
+        img_c, gv_c, gc_c = run(which, "cpu")
+        fig = {"accumulate_launches": launches, "card_s": card_s,
+               "hit_fraction": float((img_a.sum(-1) > 0).float().mean()),
+               "max_abs_image_diff_cpu": float(
+                   (img_a.cpu() - img_c).abs().max())}
+        ok = bool(torch.isfinite(img_a).all()) \
+            and fig["max_abs_image_diff_cpu"] <= 2e-5
+        for name, g, gc in (("verts", gv_a, gv_c), ("colors", gc_a, gc_c)):
+            scale = float(gc.abs().max())
+            err = float((g.cpu() - gc).abs().max())
+            fig[f"grad_{name}"] = {"max_abs": scale, "max_abs_diff_cpu": err}
+            ok = ok and bool(torch.isfinite(g).all()) and scale > 0 \
+                and err <= 1e-4 * scale
+        if not ok:
+            raise AssertionError(f"rt.diff {which} on the card: {fig}")
+        diff_figs[which] = fig
+    phase("rt_diff", rays=int(o.shape[0]), triangles=int(faces.shape[0]),
+          gradients_bit_identical=True, **diff_figs)
+
+    # 24. the streamed and worklist kernels: the check scenes, then the six
+    # launches of the small scene's 1024x1024 frame
+    def stream_compare(o, d, tm, stream, clusters, flat, stats=None):
+        """Both kernels against their plain versions, against each other
+        and the clustered kernel (equal on every ray) and the flat one
+        (tie-aware); raises on any mismatch."""
+        out = {}
+        got = cuda_rt.closest_hit_streamed(o, d, stream, t_max=tm)
+        want, out["streamed_plain_ms"] = timed(
+            lambda: cuda_rt.closest_hit_streamed_reference(
+                o, d, stream, tm, stats=None if stats is None else
+                stats.setdefault("streamed", {})))
+        lists = cuda_rt.active_block_lists(o, d, stream, tm)
+        got_w = cuda_rt.closest_hit_worklist(o, d, stream, t_max=tm,
+                                             lists=lists)
+        want_w, out["worklist_plain_ms"] = timed(
+            lambda: cuda_rt.closest_hit_worklist_reference(
+                o, d, stream, *lists, tm, stats=None if stats is None else
+                stats.setdefault("worklist", {})))
+        out["streamed_plain_ms"] *= 1e3
+        out["worklist_plain_ms"] *= 1e3
+        out["streamed_rays_differ"], e1_ = differ(got, want)
+        out["worklist_rays_differ"], e2_ = differ(got_w, want_w)
+        out["max_abs_err"] = max(e1_, e2_)
+        out["streamed_differ_from_worklist"] = differ(got, got_w)[0]
+        out["differ_from_clustered"] = differ(
+            got, cuda_rt.closest_hit_clustered(o, d, clusters, t_max=tm))[0]
+        if any(out[k] for k in out if "differ" in k):
+            raise AssertionError(f"streamed / worklist kernels: {out}")
+        out["prims_tied_with_flat"] = scenes.check_clustered_equals_flat(
+            [x.cpu().numpy() for x in got],
+            [x.cpu().numpy() for x in cuda_rt.closest_hit_pallas(
+                o, d, flat, t_max=tm)])
+        out["mean_list_length"] = float(lists[1].float().mean())
+        return out
+
+    def pack(verts, faces, bvh, tri_block=cuda_rt.STREAM_TRI_BLOCK):
+        tri = intersect.triangle_arrays(
+            on_card(verts), on_card(np.asarray(faces, np.int64)))
+        cl = bvh_mod.build_clusters(bvh, 64)
+        return (cuda_rt.prepare_stream_blocks(*tri, order=cl["order"],
+                                              tri_block=tri_block),
+                cuda_rt.prepare_clusters(*tri, cl), cuda_rt.pack_records(*tri))
+
+    checks = {"cases": 0, "rays_differ": 0, "prims_tied_with_flat": 0}
+    for name in sorted(scenes.CLUSTER_CHECK_SCENES):
+        verts, faces, _, queries = scenes.cluster_check_queries(name)
+        packed = pack(verts, faces, bvh_mod.build(verts, faces), 24)
+        for _, _, o, d, tm in queries:
+            tm = None if tm is None else cuda_rt._per_ray_tmax(
+                on_card(tm) if np.ndim(tm) else tm, o.shape[0], dev)
+            out = stream_compare(on_card(o), on_card(d), tm, *packed)
+            checks["cases"] += 1
+            checks["prims_tied_with_flat"] += out["prims_tied_with_flat"]
+
+    scene, cam = small_scene()
+    scene.finalize()
+    P = int(scene.faces.shape[0])
+    stream, clusters, flat = pack(scene.verts, scene.faces, scene.bvh)
+    kw = dict(width=RT_SIZE, height=RT_SIZE, bounces=2, shadows=True)
+    base_fn, (o1024, d1024) = tracer.make_frame_fn(scene, cam,
+                                                   tracer.RTConfig(**kw))
+    launches = capture_launches(
+        scene, tracer.RTConfig(**kw),
+        lambda o, d: cuda_rt.closest_hit_clustered(o, d, clusters),
+        lambda o, d, tm: cuda_rt.any_hit_clustered(o, d, clusters, t_max=tm),
+        o1024, d1024)
+    classes = {}
+    for name, launch in zip(LAUNCH_NAMES, launches):
+        os_, ds2, tms = sample_launch(name, launch)
+        stats = {}
+        out = stream_compare(os_, ds2, tms, stream, clusters, flat, stats)
+        classes[name] = {
+            "launch_rays": int(launch[1].shape[0]),
+            "parked_in_sample": int((os_[:, 0] > 1e7).sum()), **out,
+            **{f"{q}_{k}_per_ray": stats[q][k] / RT_SAMPLE
+               for q in ("streamed", "worklist")
+               for k in ("slab_tests", "tri_tests")}}
+    # the whole primary launch: the shapes of the kernels line
+    _, o, d, tm = launches[0]
+    stats = {}
+    primary = stream_compare(o, d, tm, stream, clusters, flat, stats)
+    R = o.shape[0]
+    moved = nbytes(o, d, stream["tri"], stream["aabb"], stream["order"]) \
+        + 16 * R
+    lists = cuda_rt.active_block_lists(o, d, stream, tm)
+    stream_entries = []
+    for q, line, extra in (("streamed", 384, 0),
+                           ("worklist", 638, nbytes(*lists))):
+        stream_entries.append({
+            "name": f"rt_closest_hit_{q}", "route": "cuda",
+            "source": "skybox_rt_tpu_torch/csrc/rt_streamed.cu",
+            "replaces": f"skybox_rt_tpu/ops/pallas_rt.py:{line}",
+            "launches": None, "max_abs_err": primary["max_abs_err"],
+            "ms": None, "plain_ms": primary[f"{q}_plain_ms"],
+            **bound(moved + extra, stats[q]["tri_tests"] * MT_OPS
+                    + stats[q]["slab_tests"] * SLAB_OPS),
+            "library_ms": None,     # no single PyTorch call computes this
+            "rays": R, "rays_differ": primary[f"{q}_rays_differ"],
+            "slab_tests_per_ray": stats[q]["slab_tests"] / R,
+            "tri_tests_per_ray": stats[q]["tri_tests"] / R})
+    # both engines' full-width frames: 3 + 3 launches of their one kernel
+    # (closest, and the closest hit inside the bound as the occlusion
+    # query), the image the clustered frame's
+    base = base_fn(o1024, d1024)
+    frames = {}
+    for entry, engine in zip(stream_entries,
+                             ("pallas_streamed", "pallas_worklist")):
+        fn_e, (oe, de) = tracer.make_frame_fn(
+            scene, cam, tracer.RTConfig(engine=engine, **kw))
+        torch.cuda.synchronize()
+        cuda_rt.reset_launch_counts()
+        img_e = fn_e(oe, de)
+        torch.cuda.synchronize()
+        got_counts = dict(cuda_rt.launch_counts)
+        key = entry["name"].removeprefix("rt_")
+        if got_counts != {key: 6}:
+            raise AssertionError(f"{engine} frame launched {got_counts}, "
+                                 f"expected 6 of {key}")
+        max_diff = float((img_e - base).abs().max())
+        if max_diff != 0.0:
+            raise AssertionError(f"{engine} frame != clustered frame: max "
+                                 f"|diff| {max_diff}")
+        entry["launches"] = 6
+        frames[engine] = {"launches": got_counts,
+                          "max_abs_diff_clustered_frame": max_diff,
+                          "fn": (fn_e, oe, de)}
+    phase("rt_streamed_worklist", checks=checks, triangles=P,
+          blocks=stream["num_blocks"], tri_block=stream["tri_block"],
+          ray_tile=cuda_rt.STREAM_RAY_TILE, classes=classes,
+          primary={k: v for k, v in primary.items()},
+          frames={e: {k: v for k, v in f.items() if k != "fn"}
+                  for e, f in frames.items()},
+          equal=True, rays_differ=0)
+
+    # 25. timing (printed, not judged)
+    t = {"after_walks_ms": {}, "winner_ms": {}}
+    for m, a in zip(metas, arrays):
+        if m["mode"] == "winner":
+            oo, dd = ((dirs * m["far_d"], -dirs) if m["farthest"]
+                      else (eye, dirs))
+            t["winner_ms"][m["draw_index"]] = median_ms(
+                lambda: cuda_rt.closest_hit_bvh(oo, dd, a["blocks"],
+                                                t_min=1e-6))
+        elif m["mode"] == "kslot":
+            walks = m["K"] + (m["K"] < m["P"])
+            outs, _, _, _ = compare_walks(eye, dirs, None, a["blocks"], walks,
+                                          plain_on=set())
+            carries = [start(N * N)] + [(g[2], g[0]) for g in outs[:-1]]
+            t["after_walks_ms"][m["draw_index"]] = [median_ms(
+                lambda: cuda_rt.closest_hit_bvh_after(
+                    eye, dirs, a["blocks"], tlo, slo, t_min=1e-6))
+                for tlo, slo in carries]
+    after_entry["ms"] = t["after_walks_ms"][meta["draw_index"]][0]
+    after_entry["walk_ms"] = t["after_walks_ms"]
+    after_entry["frame_ms"] = sum(sum(v) for v in
+                                  t["after_walks_ms"].values())
+    scan = next((m, a) for m, a in zip(metas, arrays) if m["mode"] == "scan")
+    zb0, c0 = rb.clear_buffers(N * N, dev)
+    t["scan_draw_ms"] = median_ms(lambda: rb._scan_run(
+        scan[0]["statics"], scan[1], nx, ny, zb0, c0))
+    t["scan_triangles"] = scan[0]["P"]
+    t["frame_1024_ms"] = median_ms(lambda: fn(arrays, nx, ny))
+    frame_mod.render_trace_rt_fused(trace, 512, 512)
+    fn5, arr5, rays5, _ = frame_mod.make_frame_fn(trace, 512, 512)
+    t["frame_512_ms"] = median_ms(lambda: fn5(arr5, *rays5))
+    t["kernels_1024_ms"] = after_entry["frame_ms"] + sum(
+        t["winner_ms"].values())
+    t["mpix_per_s_1024"] = N * N * len(metas) / t["frame_1024_ms"] / 1e3
+    _, o, d, tm = launches[0]
+    s_entry, w_entry = stream_entries
+    s_entry["ms"] = median_ms(
+        lambda: cuda_rt.closest_hit_streamed(o, d, stream))
+    w_entry["ms"] = median_ms(
+        lambda: cuda_rt.closest_hit_worklist(o, d, stream, lists=lists))
+    w_entry["prepass_ms"] = median_ms(
+        lambda: cuda_rt.active_block_lists(o, d, stream), reps=5, warmup=1)
+    w_entry["with_prepass_ms"] = median_ms(
+        lambda: cuda_rt.closest_hit_worklist(o, d, stream), reps=5, warmup=1)
+    small = {"streamed_ms": s_entry["ms"], "worklist_ms": w_entry["ms"],
+             "worklist_prepass_ms": w_entry["prepass_ms"],
+             "worklist_with_prepass_ms": w_entry["with_prepass_ms"],
+             "clustered_ms": median_ms(
+                 lambda: cuda_rt.closest_hit_clustered(o, d, clusters)),
+             "flat_ms": median_ms(
+                 lambda: cuda_rt.closest_hit_pallas(o, d, flat), reps=3,
+                 warmup=1)}
+    for engine, f in frames.items():
+        fn_e, oe, de = f["fn"]
+        small[f"{engine}_frame_ms"] = median_ms(lambda: fn_e(oe, de), reps=5,
+                                                warmup=1)
+    small["clustered_frame_ms"] = median_ms(lambda: base_fn(o1024, d1024))
+    phase("rt_config3_timing", card=card, reps=REPS, config3=t,
+          small_scene_primary=small)
+    return [after_entry] + stream_entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1501,7 +2080,7 @@ def main() -> int:
     phase("timing", card=card, reps=REPS, **timings)
 
     rt_entries = (rt_phases(dev, card) + small_phases(dev, card)
-                  + diff_phases(dev, card))
+                  + diff_phases(dev, card) + config3_phases(dev, card))
 
     print(card)
     p256 = timings["pass1_256"]

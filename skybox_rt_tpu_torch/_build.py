@@ -8,7 +8,7 @@ started together, and the objects are linked into one library.  It lands in
 flags, so an edited source rebuilds.  Flags keep IEEE float32 division and no
 FMA contraction, which the exact-int raster path (csrc/raster_visibility.cu),
 the ray queries' agreement with their plain versions (csrc/rt_bvh.cu,
-csrc/rt_clustered.cu) and the float visibility's (csrc/diff_visibility.cu)
+csrc/rt_clustered.cu, csrc/rt_streamed.cu) and the float visibility's (csrc/diff_visibility.cu)
 need; fast math is never used.
 """
 from __future__ import annotations
@@ -40,6 +40,10 @@ _SIGNATURES = {
     # o d tmax tri bcnt s2p aabb, host level_off level_cnt, num_levels
     # tri_block, t_min, R, prim t u v, the stream
     "skybox_rt_closest_hit_bvh": [_P] * 9 + [_I, _I, _F, _I] + [_P] * 5,
+    # o d tmax tlo slo tri bcnt s2p aabb, host level_off level_cnt,
+    # num_levels tri_block, t_min, R, slot prim t u v, the stream
+    "skybox_rt_closest_hit_bvh_after": [_P] * 11 + [_I, _I, _F, _I]
+                                       + [_P] * 6,
     # o d tmax tri bcnt aabb, host level_off level_cnt, num_levels
     # tri_block, t_min, R, occ, the stream
     "skybox_rt_any_hit_bvh": [_P] * 8 + [_I, _I, _F, _I] + [_P] * 2,
@@ -49,6 +53,14 @@ _SIGNATURES = {
     "skybox_rt_any_hit_clustered": [_P] * 6 + [_I, _F, _I] + [_P] * 2,
     # o d tmax tri, P, t_min, R, prim t u v, the stream
     "skybox_rt_closest_hit_flat": [_P] * 4 + [_I, _F, _I] + [_P] * 5,
+    # o d tmax tri aabb order, NB P tri_block, t_min, R, prim t u v, the
+    # stream
+    "skybox_rt_closest_hit_streamed": [_P] * 6 + [_I, _I, _I, _F, _I]
+                                      + [_P] * 5,
+    # o d tmax tri aabb order lists counts, NB P tri_block, t_min, R,
+    # prim t u v, the stream
+    "skybox_rt_closest_hit_worklist": [_P] * 8 + [_I, _I, _I, _F, _I]
+                                      + [_P] * 5,
     # edges z tile_pids origins out, T M tile_logsize depth_test, the stream
     "skybox_diff_visibility_hard": [_P] * 5 + [_I] * 4 + [_P],
     # idx val partial out, N R C S L, the stream

@@ -1,10 +1,12 @@
-// Closest-hit and any-hit ray queries over BVH-treelet blocks, for sm_90a.
+// Closest-hit, next-hit-after and any-hit ray queries over BVH-treelet blocks,
+// for sm_90a.
 //
 // Replace the Pallas TPU kernels skybox_rt_tpu/ops/pallas_rt.py
-// `_make_bvh_worklist_kernel` (entry `closest_hit_bvh`) and
-// `_make_bvh_anyhit_kernel` (entry `any_hit_bvh`).  Those stream every block a
-// 2048-ray bundle might touch through VMEM, after a host-side conservative
-// prepass has made the bundle's worklist.  Here a ray is one thread and walks
+// `_make_bvh_worklist_kernel` (entry `closest_hit_bvh`),
+// `_make_bvh_after_kernel` (entry `closest_hit_bvh_after`, with the prepass
+// `bvh_worklists`) and `_make_bvh_anyhit_kernel` (entry `any_hit_bvh`).  Those
+// stream every block a 2048-ray bundle might touch through VMEM, after a
+// host-side conservative prepass has made the bundle's worklist.  Here a ray is one thread and walks
 // the hierarchy itself: the pyramid of group AABBs that rt.bvh.build_block_set
 // makes (level l+1 group g covers level-l entries 8g..8g+7) is an implicit
 // 8-ary tree over the triangle blocks, so there is no prepass, no worklist and
@@ -15,6 +17,13 @@
 //            test enters with far = the ray's running best t, the Möller–
 //            Trumbore hit with the lexicographic minimum (t, slot); slot is
 //            the triangle's record row (block * tri_block + j).
+//   after:   the same minimum over the hits strictly after a per-ray carry,
+//            (t_lo[r], slot_lo[r]) < (t, slot) in lexicographic order.  Walks
+//            that feed (t, slot) back list every hit of a ray once, equal t
+//            included; a miss returns t = +inf, which ends the list.  The
+//            slab gate's far bound is still the running best t and admits
+//            equality (a later block may hold a hit of equal t and lower
+//            slot); t_lo never tightens the gate.
 //   any:     whether any triangle hits with t_min < t < t_max[r]; far is the
 //            fixed t_max[r], and the walk returns at the first hit.
 //
@@ -54,15 +63,6 @@ struct Pyramid {
     int cnt[MAX_LEVELS];   // entries of level l
     int num_levels;
 };
-
-// Slab test of one (6,) AABB row [min.xyz max.xyz].
-__device__ __forceinline__ bool slab(const float* __restrict__ box,
-                                     const Ray& ray, float far) {
-    const float2* b2 = reinterpret_cast<const float2*>(box);
-    float2 a = __ldg(b2), b = __ldg(b2 + 1), c = __ldg(b2 + 2);
-    // a = (min.x, min.y), b = (min.z, max.x), c = (max.y, max.z)
-    return slab_box(a.x, a.y, b.x, b.y, c.x, c.y, ray, far);
-}
 
 // Walks the pyramid for one ray.  `leaf(block)` tests the block's triangles,
 // may lower `far`, and returns true to end the walk.
@@ -130,6 +130,59 @@ closest_hit_bvh_kernel(const float* __restrict__ o,
         return false;
     });
     bool miss = best_s < 0;
+    out_prim[r] = miss ? -1 : __ldg(s2p + best_s);
+    out_t[r] = miss ? CUDART_INF_F : best_t;
+    out_u[r] = miss ? 0.0f : best_u;
+    out_v[r] = miss ? 0.0f : best_v;
+}
+
+// The next hit after the carry (t_lo, slot_lo): the closest-hit walk with a
+// two-sided window.  A parked ray, a ray whose carry is (+inf, .) and a ray
+// that has no further hit all come back a miss.
+__global__ void __launch_bounds__(THREADS)
+closest_hit_bvh_after_kernel(const float* __restrict__ o,
+                             const float* __restrict__ d,
+                             const float* __restrict__ tmax,   // (R,) or null
+                             const float* __restrict__ tlo,    // (R,)
+                             const int* __restrict__ slo,      // (R,)
+                             const float4* __restrict__ tri,
+                             const int* __restrict__ bcnt,
+                             const int* __restrict__ s2p,
+                             const float* __restrict__ aabb,
+                             Pyramid pyr, int tri_block, float t_min, int R,
+                             int* __restrict__ out_slot,
+                             int* __restrict__ out_prim,
+                             float* __restrict__ out_t,
+                             float* __restrict__ out_u,
+                             float* __restrict__ out_v) {
+    int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= R) return;
+    Ray ray = load_ray(o, d, r);
+    float tmax0 = tmax ? tmax[r] : CUDART_INF_F;
+    float t_lo = tlo[r];
+    int s_lo = slo[r];
+    float best_t = tmax0, best_u = 0.0f, best_v = 0.0f;
+    int best_s = -1;
+    walk(aabb, pyr, ray, best_t, [&](int b) {
+        int base = b * tri_block;
+        int n = __ldg(bcnt + b);
+        for (int j = 0; j < n; ++j) {
+            int slot = base + j;
+            float t, u, v;
+            bool hit = mt_one(tri, slot, ray, t_min, t, u, v) && t < tmax0;
+            // (t_lo, s_lo) < (t, slot) < (best_t, best_s), lexicographic
+            hit = hit && (t > t_lo || (t == t_lo && slot > s_lo));
+            if (hit && (t < best_t || (t == best_t && slot < best_s))) {
+                best_t = t;
+                best_s = slot;
+                best_u = u;
+                best_v = v;
+            }
+        }
+        return false;
+    });
+    bool miss = best_s < 0;
+    out_slot[r] = best_s;
     out_prim[r] = miss ? -1 : __ldg(s2p + best_s);
     out_t[r] = miss ? CUDART_INF_F : best_t;
     out_u[r] = miss ? 0.0f : best_u;
@@ -212,5 +265,25 @@ extern "C" int skybox_rt_any_hit_bvh(
         (const float*)o, (const float*)d, (const float*)tmax,
         (const float4*)tri, (const int*)bcnt, (const float*)aabb, pyr,
         tri_block, t_min, R, (unsigned char*)out_occ);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int skybox_rt_closest_hit_bvh_after(
+        const void* o, const void* d, const void* tmax, const void* tlo,
+        const void* slo, const void* tri, const void* bcnt, const void* s2p,
+        const void* aabb, const int* level_off, const int* level_cnt,
+        int num_levels, int tri_block, float t_min, int R, void* out_slot,
+        void* out_prim, void* out_t, void* out_u, void* out_v, void* stream) {
+    Pyramid pyr;
+    int rc = fill_pyramid(pyr, level_off, level_cnt, num_levels);
+    if (rc != cudaSuccess) return rc;
+    if (R == 0) return cudaSuccess;
+    int grid = (R + THREADS - 1) / THREADS;
+    closest_hit_bvh_after_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)o, (const float*)d, (const float*)tmax,
+        (const float*)tlo, (const int*)slo, (const float4*)tri,
+        (const int*)bcnt, (const int*)s2p, (const float*)aabb, pyr,
+        tri_block, t_min, R, (int*)out_slot, (int*)out_prim, (float*)out_t,
+        (float*)out_u, (float*)out_v);
     return (int)cudaGetLastError();
 }

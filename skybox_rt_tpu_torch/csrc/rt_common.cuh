@@ -1,5 +1,6 @@
 // Device functions shared by the ray-query kernels (rt_bvh.cu,
-// rt_clustered.cu): the ray, the slab test and one Möller–Trumbore test.
+// rt_clustered.cu, rt_streamed.cu): the ray, the slab test and one
+// Möller–Trumbore test.
 //
 // Arithmetic: every multiply, add and subtract of the slab and triangle tests
 // is a round-to-nearest intrinsic (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn),
@@ -57,6 +58,15 @@ __device__ __forceinline__ bool slab_box(float lox, float loy, float loz,
     float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
                      fminf(fmaxf(t0z, t1z), far));
     return tn <= tf;
+}
+
+// Slab test of one (6,) AABB row [min.xyz max.xyz] in global memory.
+__device__ __forceinline__ bool slab(const float* __restrict__ box,
+                                     const Ray& ray, float far) {
+    const float2* b2 = reinterpret_cast<const float2*>(box);
+    float2 a = __ldg(b2), b = __ldg(b2 + 1), c = __ldg(b2 + 2);
+    // a = (min.x, min.y), b = (min.z, max.x), c = (max.y, max.z)
+    return slab_box(a.x, a.y, b.x, b.y, c.x, c.y, ray, far);
 }
 
 // a*b + c*d + e*f, left to right, each step rounded

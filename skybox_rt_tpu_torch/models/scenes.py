@@ -294,3 +294,94 @@ def check_clustered_equals_flat(got, got_flat):
         raise AssertionError(f"clustered != flat beyond ties: {ties} of "
                              f"{hits} hits")
     return ties
+
+
+# The triangle soups the next-hit-after query is checked on, by the CPU tests
+# against the JAX package and by chip_smoke.py on the card.  Both hold hits of
+# exactly equal t, which an enumeration that steps t by an epsilon would lose.
+AFTER_CHECK_SOUPS = ("duplicate_soup", "coplanar_grid")
+
+
+def after_check_queries(name):
+    """(v0, e1, e2, tri_block, o, d, t_max, walks) of a check soup: float32
+    (P, 3) triangle arrays, rays (R, 3), t_max None or (R,), and the number
+    of walks that enumerates every ray's hits."""
+    if name == "duplicate_soup":
+        # random triangles, one an exact duplicate of another: every hit of
+        # the pair is a tie; every fifth ray is parked
+        rng = np.random.default_rng(0)
+        P, R = 37, 300
+        v0, e1, e2 = (rng.uniform(-1, 1, (P, 3)).astype(F32)
+                      for _ in range(3))
+        v0[20], e1[20], e2[20] = v0[5], e1[5], e2[5]
+        o = rng.uniform(-3, -2, (R, 3)).astype(F32)
+        d = (rng.uniform(-1, 1, (R, 3)) + 1.5).astype(F32)
+        o, d, _ = parked(o, d, 5)
+        return v0, e1, e2, 64, o, d, None, 8
+    if name == "coplanar_grid":
+        # two coplanar layers of an n x n quad grid in the plane z = 1, the
+        # second shifted by half a cell; parallel rays that reach grid
+        # vertices, edge midpoints and cell centres at exactly t = 1 meet up
+        # to 6 + 2 triangles there.  Blocks of 8: the tied triangles lie in
+        # several.  Every coordinate is a multiple of 1/16, so each product
+        # and sum of the test is exact in float32 however it is contracted:
+        # an edge hit is u = 0 or u + v = 1 exactly, in every implementation.
+        # The rays are inclined: an axis-parallel ray that lies exactly in a
+        # box's upper face fails the slab test (0 * 1e30 = 0 < t).
+        n = 8
+        lin = np.linspace(-1.0, 1.0, n + 1, dtype=F32)
+        tris = []
+        for shift in (F32(0.0), F32(1.0 / n)):
+            for i in range(n):
+                for j in range(n):
+                    a = [lin[j] + shift, lin[i] + shift, 1.0]
+                    b = [lin[j + 1] + shift, lin[i] + shift, 1.0]
+                    c = [lin[j + 1] + shift, lin[i + 1] + shift, 1.0]
+                    e = [lin[j] + shift, lin[i + 1] + shift, 1.0]
+                    tris += [[a, b, c], [a, c, e]]
+        tri = np.asarray(tris, F32)
+        half = np.linspace(-1.0, 1.0, 2 * n + 1, dtype=F32)
+        xx, yy = np.meshgrid(half, half)
+        d = np.tile(np.asarray([[0.125, 0.0625, 1.0]], F32), (xx.size, 1))
+        o = np.stack([xx.ravel(), yy.ravel(), np.ones(xx.size, F32)], -1) - d
+        # a third of the rays stop before the plane, a third just behind it
+        t_max = np.asarray([0.5, 1.5, np.inf], F32)[np.arange(o.shape[0]) % 3]
+        return (tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], 8,
+                o.astype(F32), d, t_max, 10)
+    raise KeyError(name)
+
+
+def soup_mesh(v0, e1, e2):
+    """(verts (3P, 3), faces (P, 3)) of a triangle soup given as arrays."""
+    verts = np.stack([v0, v0 + e1, v0 + e2], 1).reshape(-1, 3)
+    return verts, np.arange(verts.shape[0], dtype=np.int64).reshape(-1, 3)
+
+
+def layered_trace(layers=3, grid=6):
+    """One drawcall of `layers` stacked viewport-covering triangle sheets
+    (grid x grid quads each), blending on, depth test off: every pixel gets
+    `layers` fragments in submission order, and the draw has more triangles
+    than the frame's scan cutoff, so it runs the K-slot walks.  Returns
+    (pos (V, 4), indices (P, 3), color (V, 4), uv (V, 2))."""
+    verts, idx, cols, uvs = [], [], [], []
+    for li in range(layers):
+        base = len(verts)
+        for gy in range(grid + 1):
+            for gx in range(grid + 1):
+                # deterministic jitter: no pixel ray grazes a shared edge
+                j = 0.013 * np.sin(12.9898 * gx + 78.233 * gy + li)
+                x = (2.0 * gx / grid - 1.0) + j
+                y = (2.0 * gy / grid - 1.0) - j
+                verts.append([x, y, 0.2 + 0.2 * li, 1.0])
+                cols.append([0.9 - 0.2 * li, 0.3 + 0.2 * li, 0.5, 0.5])
+                uvs.append([gx / grid, gy / grid])
+        for gy in range(grid):
+            for gx in range(grid):
+                v00 = base + gy * (grid + 1) + gx
+                v10 = v00 + 1
+                v01 = v00 + (grid + 1)
+                v11 = v01 + 1
+                idx.append([v00, v10, v11])
+                idx.append([v00, v11, v01])
+    return (np.asarray(verts, F32), np.asarray(idx, np.int32),
+            np.asarray(cols, F32), np.asarray(uvs, F32))

@@ -1,6 +1,6 @@
 """Ray queries: the CUDA kernels and their plain torch versions.
 
-Counterpart of skybox_rt_tpu.ops.pallas_rt.  Five kernels replace Pallas TPU
+Counterpart of skybox_rt_tpu.ops.pallas_rt.  Eight kernels replace Pallas TPU
 kernels of that module; each source says how a ray walks its structure and
 what bounds it:
 
@@ -9,16 +9,21 @@ what bounds it:
   ===========================  ==========================  ====================
   :func:`closest_hit_bvh`      _make_bvh_worklist_kernel   csrc/rt_bvh.cu
   :func:`any_hit_bvh`          _make_bvh_anyhit_kernel     csrc/rt_bvh.cu
+  :func:`closest_hit_bvh_after` _make_bvh_after_kernel     csrc/rt_bvh.cu
   :func:`closest_hit_clustered` _make_clustered_kernel     csrc/rt_clustered.cu
   :func:`any_hit_clustered`    _make_clustered_anyhit_kernel  csrc/rt_clustered.cu
   :func:`closest_hit_pallas`   _make_kernel                csrc/rt_clustered.cu
+  :func:`closest_hit_streamed` _make_streamed_kernel       csrc/rt_streamed.cu
+  :func:`closest_hit_worklist` _make_worklist_kernel       csrc/rt_streamed.cu
   ===========================  ==========================  ====================
 
 (:func:`any_hit_pallas` wraps :func:`closest_hit_pallas`, as in the JAX
 package.)  What the TPU schedule needed and the functions do not is gone: ray
-packing into (8, 128) tiles, the worklist prepass, the per-tile cluster gate
-and dominant octant, the 128-lane record padding, ``sub`` / ``L`` /
-``unroll`` / ``early_exit`` / ``interpret``.
+packing into (8, 128) tiles, the BVH kernels' worklist prepass, the per-tile
+cluster gate and dominant octant, the 128-lane record padding, the 512-row
+triangle blocks and their shared-memory table caps, ``sub`` / ``L`` /
+``unroll`` / ``early_exit`` / ``interpret``.  (The worklist query's prepass
+stays: its lists are what that query is.)
 
   * a CUDA tensor launches the kernel on the current stream, or raises;
   * a CPU tensor runs the ``*_reference`` function beside the wrapper, the
@@ -26,8 +31,8 @@ and dominant octant, the 128-lane record padding, ``sub`` / ``L`` /
     chip_smoke.py's comparison call them by name; nothing on the main path
     does when a card is present.
 
-Tie rules.  Among hits of equal t the BVH-block and the clustered closest-hit
-queries return the one with the lowest *slot* (the triangle's record row, its
+Tie rules.  Among hits of equal t the BVH-block, clustered, streamed and
+worklist closest-hit queries return the one with the lowest *slot* (the triangle's record row, its
 position in treelet order): the lexicographic (t, slot) minimum, mapped back
 to the original prim id.  It does not depend on the order in which blocks or
 clusters are met.  (The Pallas kernels keep the first hit in their visit
@@ -46,7 +51,9 @@ does not depend on the order.
 Records are the port's own layout: ``(rows, 12)`` float32 [v0 e1 e2 | 3 of
 padding], three float4 a row.  BVH blocks hold ``C * tri_block`` rows; rows
 past a block's ``bcnt[b]`` triangles are zero and never read.  Clusters hold
-the P triangles in treelet order, the flat query in prim order.
+the P triangles in treelet order, the flat query in prim order, the streamed
+and worklist queries in the caller's ``order``, cut into blocks of
+``tri_block`` rows with the last one shorter.
 """
 from __future__ import annotations
 
@@ -66,10 +73,20 @@ MAX_LEVELS = 8
 #: most entries a pyramid level may have (24 index bits of a stack entry)
 MAX_LEVEL_ENTRIES = 1 << 24
 RECORD_WIDTH = 12
+#: rays of one tile of the streamed and worklist queries: one thread block
+#: (csrc/rt_streamed.cu RAY_TILE), and the unit of the worklist's prepass
+STREAM_RAY_TILE = 128
+#: triangles of one block of those queries, staged through shared memory
+#: together; at most csrc/rt_streamed.cu MAX_TRI_BLOCK
+STREAM_TRI_BLOCK = 64
+STREAM_MAX_TRI_BLOCK = 256
+#: most (ray, block) pairs one chunk of the worklist's prepass may hold
+PREPASS_PAIRS = 1 << 24
 
 #: Kernel launches since the last reset, keyed by kernel (closest_hit_bvh,
-#: any_hit_bvh, closest_hit_clustered, any_hit_clustered, closest_hit_flat;
-#: a kernel not launched reads 0): a run reads them to show that its main
+#: any_hit_bvh, closest_hit_bvh_after, closest_hit_clustered,
+#: any_hit_clustered, closest_hit_flat, closest_hit_streamed,
+#: closest_hit_worklist; a kernel not launched reads 0): a run reads them to show that its main
 #: path went through the kernels.  Only :func:`_launch` adds to them.
 launch_counts: collections.Counter = collections.Counter()
 
@@ -207,9 +224,10 @@ def prepare_clusters(v0, e1, e2, clusters, device=None):
                          clusters["count"], clusters["order"], device)
 
 
-def _slab_pass(box, o, inv, far):
-    """tn <= tf of one AABB row [min.xyz max.xyz ...] against rays o, inv
-    ((r,) x 3 each) with the far clip ``far`` (r,): pallas_rt._slab /
+def _slab(box, o, inv, far):
+    """(tn, tf) of the slab test of AABBs ``box`` (six tensors or numbers
+    [min.xyz max.xyz ...]) against rays o, inv (three tensors each) with the
+    far clip ``far``, everything broadcast together: pallas_rt._slab /
     _slab_embedded, term by term."""
     t0x = (box[0] - o[0]) * inv[0]
     t1x = (box[3] - o[0]) * inv[0]
@@ -224,6 +242,12 @@ def _slab_pass(box, o, inv, far):
     tf = torch.minimum(
         torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
         torch.minimum(torch.maximum(t0z, t1z), far))
+    return tn, tf
+
+
+def _slab_pass(box, o, inv, far):
+    """tn <= tf of one AABB row against rays ((r,) x 3 each), far (r,)."""
+    tn, tf = _slab(box, o, inv, far)
     return tn <= tf
 
 
@@ -260,42 +284,62 @@ def _count(stats, **kw):
             stats[k] = stats.get(k, 0) + int(v)
 
 
-def _closest_over(tri, boxes, o, d, inv, tmax0, t_min, stats):
+def _new_best(tmax0):
+    R, dev = tmax0.shape[0], tmax0.device
+    return (tmax0.clone(),
+            torch.full((R,), -1, dtype=torch.int64, device=dev),
+            torch.zeros((R,), dtype=torch.float32, device=dev),
+            torch.zeros((R,), dtype=torch.float32, device=dev))
+
+
+def _merge_best(best, idx, hit, t, u, v, slots):
+    """Fold the hits of rays ``idx`` ((r, n) masks and values; slots (r, n)
+    or (1, n) int64, ascending along n) into best = (t, slot, u, v), in
+    place: the lexicographic (t, slot) minimum."""
+    best_t, best_s, best_u, best_v = best
+    t_m = torch.where(hit, t, torch.full_like(t, math.inf))
+    # first minimum = lowest slot of the range at equal t
+    j = torch.argmin(t_m, dim=1, keepdim=True)
+    cand_t = t_m.gather(1, j)[:, 0]
+    slot = slots.expand_as(t_m).gather(1, j)[:, 0]
+    cur_t, cur_s = best_t[idx], best_s[idx]
+    better = (cand_t < math.inf) & (
+        (cand_t < cur_t) | ((cand_t == cur_t) & (slot < cur_s)))
+    w = idx[better]
+    jb = j[better]
+    best_t[w] = cand_t[better]
+    best_s[w] = slot[better]
+    best_u[w] = u[better].gather(1, jb)[:, 0]
+    best_v[w] = v[better].gather(1, jb)[:, 0]
+
+
+def _closest_over(tri, boxes, o, d, inv, tmax0, t_min, stats, after=None):
     """The running lexicographic (t, slot) minimum of rays (o, d, inv:
     component tuples; tmax0 (r,)) over ``boxes``, an iterable of (AABB row,
     first record row, n) met in that order: per box the slab gate against
     each ray's running best t, then the (rays that pass x n triangles)
-    Möller–Trumbore batch.  Returns (best_t, best_slot [-1 = none], u, v)."""
+    Möller–Trumbore batch.  With ``after`` = (t_lo (r,) float32, slot_lo (r,)
+    int64) only hits with (t_lo, slot_lo) < (t, slot) in lexicographic order
+    count.  Returns (best_t, best_slot [-1 = none], u, v)."""
     R = tmax0.shape[0]
     dev = tmax0.device
-    best_t = tmax0.clone()
-    best_s = torch.full((R,), -1, dtype=torch.int64, device=dev)
-    best_u = torch.zeros((R,), dtype=torch.float32, device=dev)
-    best_v = torch.zeros((R,), dtype=torch.float32, device=dev)
+    best = _new_best(tmax0)
     for box, first, n in boxes:
-        idx_all = torch.nonzero(_slab_pass(box, o, inv, best_t))[:, 0]
+        idx_all = torch.nonzero(_slab_pass(box, o, inv, best[0]))[:, 0]
         _count(stats, slab_tests=R, slab_pass=idx_all.numel(),
                tri_tests=idx_all.numel() * n)
         if n == 0:
             continue
+        slots = first + torch.arange(n, device=dev)[None, :]
         for idx in _idx_chunks(idx_all, n):
             ok, t, u, v = _range_tests(tri, first, n, o, d, idx, t_min)
             hit = ok & (t < tmax0[idx][:, None])
-            t_m = torch.where(hit, t, torch.full_like(t, math.inf))
-            # first minimum = lowest slot of the range at equal t
-            j = torch.argmin(t_m, dim=1, keepdim=True)
-            cand_t = t_m.gather(1, j)[:, 0]
-            slot = first + j[:, 0]
-            cur_t, cur_s = best_t[idx], best_s[idx]
-            better = (cand_t < math.inf) & (
-                (cand_t < cur_t) | ((cand_t == cur_t) & (slot < cur_s)))
-            w = idx[better]
-            jb = j[better]
-            best_t[w] = cand_t[better]
-            best_s[w] = slot[better]
-            best_u[w] = u[better].gather(1, jb)[:, 0]
-            best_v[w] = v[better].gather(1, jb)[:, 0]
-    return best_t, best_s, best_u, best_v
+            if after is not None:
+                t_lo = after[0][idx][:, None]
+                hit = hit & ((t > t_lo) | ((t == t_lo)
+                                           & (slots > after[1][idx][:, None])))
+            _merge_best(best, idx, hit, t, u, v, slots)
+    return best
 
 
 def _any_over(tri, boxes, o, d, inv, tmax, t_min, stats):
@@ -366,6 +410,131 @@ def any_hit_bvh_reference(orig, direction, blocks, t_max=1.0,
                      o, d, inv, tmax, t_min, stats)
 
 
+def closest_hit_bvh_after_reference(orig, direction, blocks, t_lo, slot_lo,
+                                    t_max=None, t_min: float = T_MIN,
+                                    block_order=None, stats=None):
+    """Plain torch next hit after the carry, on any device: what
+    :func:`closest_hit_bvh_after` returns.  The loop of
+    :func:`closest_hit_bvh_reference` (level-0 blocks ascending, or
+    ``block_order``; the slab gate's far bound is the running best t and
+    admits equality) with the lower window (t_lo, slot_lo) < (t, slot)."""
+    o, d, inv = _components(orig, direction)
+    tmax0 = _per_ray_tmax(math.inf if t_max is None else t_max,
+                          orig.shape[0], orig.device)
+    best = _closest_over(blocks["tri"], _block_boxes(blocks, block_order),
+                         o, d, inv, tmax0, t_min, stats,
+                         after=(t_lo, slot_lo.long()))
+    slot = best[1].to(torch.int32)
+    return (slot, *_closest_result(*best, blocks["s2p"]))
+
+
+def _stream_boxes(stream):
+    TB, P = stream["tri_block"], stream["num_prims"]
+    return ((stream["aabb"][b], b * TB, min(TB, P - b * TB))
+            for b in range(stream["num_blocks"]))
+
+
+def _stream_prim(stream):
+    """slot -> prim of the streamed / worklist records: ``order``, or the
+    identity."""
+    if stream["order"] is not None:
+        return stream["order"]
+    return torch.arange(stream["num_prims"], dtype=torch.int32,
+                        device=stream["tri"].device)
+
+
+def closest_hit_streamed_reference(orig, direction, stream, t_max=None,
+                                   t_min: float = T_MIN, stats=None):
+    """Plain torch streamed closest hit, on any device: what
+    :func:`closest_hit_streamed` returns.  Every block in ascending id
+    (:func:`_closest_over`): the slab gate of each ray against its running
+    best t, then the block's triangles for the rays that pass."""
+    o, d, inv = _components(orig, direction)
+    tmax0 = _per_ray_tmax(math.inf if t_max is None else t_max,
+                          orig.shape[0], orig.device)
+    best = _closest_over(stream["tri"], _stream_boxes(stream), o, d, inv,
+                         tmax0, t_min, stats)
+    return _closest_result(*best, _stream_prim(stream))
+
+
+def active_block_lists(orig, direction, stream, t_max=None,
+                       front_to_back: bool = True):
+    """The prepass of :func:`closest_hit_worklist`, plain torch on any
+    device (pallas_rt._active_block_lists): for every tile of
+    ``STREAM_RAY_TILE`` consecutive rays the blocks that some ray of the tile
+    enters by the exact slab test against its fixed t_max, compacted to the
+    front of the row, near to far by the tile's least entry distance
+    (``front_to_back``; equal distances keep ascending id) or in ascending
+    block id.  Returns (lists (G, NB) int32, counts (G,) int32); a row's
+    entries past its count are the inactive blocks and are never read."""
+    R, dev = orig.shape[0], orig.device
+    T, NB = STREAM_RAY_TILE, stream["num_blocks"]
+    G = -(-R // T)
+    o, d, inv = _components(orig, direction)
+    far = _per_ray_tmax(math.inf if t_max is None else t_max, R, dev)
+    o, inv = [c[:, None] for c in o], [c[:, None] for c in inv]
+    active = torch.zeros((G, NB), dtype=torch.bool, device=dev)
+    tn_min = torch.full((G, NB), math.inf, dtype=torch.float32, device=dev)
+    step = max(1, PREPASS_PAIRS // max(R, 1))
+    for b0 in range(0, NB, step):
+        box = stream["aabb"][b0:b0 + step]                  # (nc, 6)
+        tn, tf = _slab([box[None, :, k] for k in range(6)], o, inv,
+                       far[:, None])
+        hit = tn <= tf                                      # (R, nc)
+        tn = torch.where(hit, tn, torch.full_like(tn, math.inf))
+        pad = G * T - R
+        if pad:     # the last tile is short: its missing rays enter nothing
+            hit = torch.cat([hit, hit.new_zeros((pad, hit.shape[1]))])
+            tn = torch.cat([tn, tn.new_full((pad, tn.shape[1]), math.inf)])
+        active[:, b0:b0 + step] = hit.view(G, T, -1).any(dim=1)
+        tn_min[:, b0:b0 + step] = tn.view(G, T, -1).amin(dim=1)
+    if front_to_back:
+        key = torch.where(active, tn_min, torch.full_like(tn_min, math.inf))
+    else:
+        key = (~active).to(torch.int8)
+    lists = torch.argsort(key, dim=1, stable=True).to(torch.int32)
+    return lists.contiguous(), active.sum(dim=1).to(torch.int32)
+
+
+def closest_hit_worklist_reference(orig, direction, stream, lists, counts,
+                                   t_max=None, t_min: float = T_MIN,
+                                   stats=None):
+    """Plain torch worklist closest hit, on any device: what
+    :func:`closest_hit_worklist` returns for the same lists.  Step k takes
+    every ray whose tile's list has more than k entries to block
+    ``lists[tile, k]``: the slab gate against the ray's running best t, then
+    that block's triangles: the kernel's per-ray order."""
+    R, dev = orig.shape[0], orig.device
+    T, TB, P = STREAM_RAY_TILE, stream["tri_block"], stream["num_prims"]
+    tri, aabb = stream["tri"], stream["aabb"]
+    o, d, inv = _components(orig, direction)
+    tmax0 = _per_ray_tmax(math.inf if t_max is None else t_max, R, dev)
+    best = _new_best(tmax0)
+    tile = torch.arange(R, device=dev) // T
+    steps_of = counts.long()[tile]                          # (R,)
+    cols = torch.arange(TB, device=dev)[None, :]
+    for k in range(int(counts.max()) if counts.numel() else 0):
+        rays = torch.nonzero(steps_of > k)[:, 0]
+        blk = lists[tile[rays], k].long()
+        enter = _slab_pass(aabb[blk].unbind(dim=1), _take(o, rays),
+                           _take(inv, rays), best[0][rays])
+        rays, blk = rays[enter], blk[enter]
+        _count(stats, slab_tests=enter.numel(), slab_pass=rays.numel(),
+               tri_tests=(P - blk * TB).clamp(max=TB).sum())
+        for sel in _idx_chunks(torch.arange(rays.numel(), device=dev), TB):
+            idx = rays[sel]
+            slots = blk[sel][:, None] * TB + cols           # (r, TB)
+            rec = tri[slots.clamp(max=P - 1)]               # (r, TB, 12)
+            ray = [c[idx][:, None] for c in o + d]
+            col = [rec[..., c] for c in range(9)]
+            valid, t, u, v = intersect.mt_components(
+                *ray, col[0:3], col[3:6], col[6:9])
+            hit = (valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+                   & (t > t_min) & (slots < P) & (t < tmax0[idx][:, None]))
+            _merge_best(best, idx, hit, t, u, v, slots)
+    return _closest_result(*best, _stream_prim(stream))
+
+
 def _octant_groups(clusters, d):
     """For each direction octant that holds rays: (ray indices, the
     clusters' (AABB row, first, count) in that octant's visit order)."""
@@ -391,10 +560,7 @@ def closest_hit_clustered_reference(orig, direction, clusters, t_max=None,
     dev = orig.device
     o, d, inv = _components(orig, direction)
     tmax0 = _per_ray_tmax(math.inf if t_max is None else t_max, R, dev)
-    best = (tmax0.clone(),
-            torch.full((R,), -1, dtype=torch.int64, device=dev),
-            torch.zeros((R,), dtype=torch.float32, device=dev),
-            torch.zeros((R,), dtype=torch.float32, device=dev))
+    best = _new_best(tmax0)
     for rays, boxes in _octant_groups(clusters, d):
         got = _closest_over(clusters["tri"], boxes, _take(o, rays),
                             _take(d, rays), _take(inv, rays), tmax0[rays],
@@ -650,3 +816,160 @@ def any_hit_pallas(orig, direction, tri, t_max=1.0, t_min: float = T_MIN):
     bound only narrows the hit window (t_max a number or (R,))."""
     tmax = _per_ray_tmax(t_max, orig.shape[0], orig.device)
     return closest_hit_pallas(orig, direction, tri, tmax, t_min)[0] >= 0
+
+
+def closest_hit_bvh_after(orig, direction, blocks, t_lo, slot_lo, t_max=None,
+                          t_min: float = T_MIN):
+    """The next hit of rays (R, 3) float32 over the treelet blocks strictly
+    after a per-ray carry: among the hits with t_min < t < t_max the
+    lexicographic (t, slot) minimum with (t_lo, slot_lo) < (t, slot); slot is
+    the triangle's record row in ``blocks``.
+
+    t_lo (R,) float32, slot_lo (R,) int32: the previous walk's (t, slot);
+    start at (-inf, -1).  A miss returns t = +inf, so feeding (t, slot)
+    straight back ends the enumeration.  Repeated walks list every hit along
+    a ray exactly once, equal t included.  Returns (slot, prim, t, u, v):
+    slot for the carry, prim in ORIGINAL ids; slot = prim = -1, t = inf,
+    u = v = 0 on a miss.
+
+    The JAX entry takes the dict of ``bvh_worklists`` in place of the rays:
+    the lists are how the TPU kernel brings blocks to a ray tile.  Here a
+    ray walks the AABB pyramid itself, so the entry takes the rays."""
+    _check_rays(orig, direction)
+    R, dev = orig.shape[0], orig.device
+    if t_max is not None:
+        t_max = _per_ray_tmax(t_max, R, dev)
+    if tuple(t_lo.shape) != (R,) or t_lo.dtype != torch.float32 \
+            or tuple(slot_lo.shape) != (R,) or slot_lo.dtype != torch.int32:
+        raise ValueError(f"the carry must be (R,) float32 and (R,) int32: got "
+                         f"{tuple(t_lo.shape)} {t_lo.dtype}, "
+                         f"{tuple(slot_lo.shape)} {slot_lo.dtype}")
+    if dev.type == "cpu":
+        return closest_hit_bvh_after_reference(orig, direction, blocks, t_lo,
+                                               slot_lo, t_max, t_min)
+    _check_on_card(dev, "carry", (("t_lo", t_lo, (R,), torch.float32),
+                                  ("slot_lo", slot_lo, (R,), torch.int32)))
+    o, d, off, cnt, n = _kernel_args(orig, direction, blocks)
+    slot = torch.empty((R,), dtype=torch.int32, device=dev)
+    prim, t, u, v = _closest_outputs(R, dev)
+    _launch("skybox_rt_closest_hit_bvh_after", dev,
+            _ptr(o), _ptr(d), _ptr(t_max), _ptr(t_lo), _ptr(slot_lo),
+            _ptr(blocks["tri"]), _ptr(blocks["bcnt"]), _ptr(blocks["s2p"]),
+            _ptr(blocks["aabb"]), off, cnt, n, blocks["tri_block"], t_min, R,
+            _ptr(slot), _ptr(prim), _ptr(t), _ptr(u), _ptr(v))
+    return slot, prim, t, u, v
+
+
+def prepare_stream_blocks(v0, e1, e2, order=None,
+                          tri_block: int = STREAM_TRI_BLOCK, device=None):
+    """Pack the scene for the streamed and worklist queries (once per
+    scene): the records in ``order`` (e.g. rt.bvh.build_clusters' treelet
+    order, which makes consecutive rows spatially tight; None: prim order)
+    cut into blocks of ``tri_block`` rows, the last one shorter, and each
+    block's AABB.
+
+    The JAX entries take v0, e1, e2 and pack them inside every call; the
+    port packs once, as for its other queries.  The boxes span the rows'
+    v0, v0 + e1 and v0 + e2 and are widened by one float32 step outwards,
+    so that the rounding of the two sums never leaves a vertex outside."""
+    device = v0.device if device is None else torch.device(device)
+    if not 1 <= tri_block <= STREAM_MAX_TRI_BLOCK:
+        raise ValueError(f"tri_block {tri_block} not in 1.."
+                         f"{STREAM_MAX_TRI_BLOCK}")
+    tri = pack_records(v0.cpu(), e1.cpu(), e2.cpu(), order=order)
+    P = tri.shape[0]
+    NB = -(-P // tri_block)
+    pts = torch.stack([tri[:, 0:3], tri[:, 0:3] + tri[:, 3:6],
+                       tri[:, 0:3] + tri[:, 6:9]], dim=1)       # (P, 3, 3)
+    if NB * tri_block > P:      # fill the last block with its own last row
+        pts = torch.cat([pts, pts[-1:].expand(NB * tri_block - P, 3, 3)])
+    pts = pts.reshape(NB, tri_block * 3, 3)
+    inf = torch.tensor(math.inf)
+    aabb = torch.cat([torch.nextafter(pts.amin(dim=1), -inf),
+                      torch.nextafter(pts.amax(dim=1), inf)], dim=1)
+    if order is not None:
+        order = torch.as_tensor(np.asarray(order, np.int32)).to(device)
+    return {"tri": tri.to(device).contiguous(),               # (P, 12)
+            "aabb": aabb.to(device).contiguous(),             # (NB, 6)
+            "order": order,                                   # slot -> prim
+            "tri_block": int(tri_block), "num_blocks": NB, "num_prims": P}
+
+
+def _check_stream(dev, stream):
+    P, NB = stream["num_prims"], stream["num_blocks"]
+    tensors = [("tri", stream["tri"], (P, RECORD_WIDTH), torch.float32),
+               ("aabb", stream["aabb"], (NB, 6), torch.float32)]
+    if stream["order"] is not None:
+        tensors.append(("order", stream["order"], (P,), torch.int32))
+    _check_on_card(dev, "stream", tensors)
+    if not 1 <= stream["tri_block"] <= STREAM_MAX_TRI_BLOCK \
+            or NB != -(-P // stream["tri_block"]):
+        raise ValueError(f"{NB} blocks of {stream['tri_block']} rows do not "
+                         f"hold {P} records")
+
+
+def closest_hit_streamed(orig, direction, stream, t_max=None,
+                         t_min: float = T_MIN):
+    """Closest hit of rays (R, 3) float32 by a dense sweep: every tile of
+    ``STREAM_RAY_TILE`` rays meets every triangle block in ascending id, and
+    a block is entered where a ray passes its AABB against the ray's running
+    best t.
+
+    stream: :func:`prepare_stream_blocks` output on the rays' device.
+    t_max: None or (R,) float32.  Returns (prim (R,) i32 in ORIGINAL ids
+    [-1 = miss], t [inf on a miss], u, v [0 on a miss]); equal t resolve to
+    the lowest slot (module docstring)."""
+    _check_rays(orig, direction)
+    if t_max is not None:
+        t_max = _per_ray_tmax(t_max, orig.shape[0], orig.device)
+    if orig.device.type == "cpu":
+        return closest_hit_streamed_reference(orig, direction, stream, t_max,
+                                              t_min)
+    _check_stream(orig.device, stream)
+    o, d = orig.contiguous(), direction.contiguous()
+    R = o.shape[0]
+    prim, t, u, v = _closest_outputs(R, o.device)
+    _launch("skybox_rt_closest_hit_streamed", o.device,
+            _ptr(o), _ptr(d), _ptr(t_max), _ptr(stream["tri"]),
+            _ptr(stream["aabb"]), _ptr(stream["order"]),
+            stream["num_blocks"], stream["num_prims"], stream["tri_block"],
+            t_min, R, _ptr(prim), _ptr(t), _ptr(u), _ptr(v))
+    return prim, t, u, v
+
+
+def closest_hit_worklist(orig, direction, stream, t_max=None,
+                         t_min: float = T_MIN, front_to_back: bool = True,
+                         lists=None):
+    """Closest hit of rays (R, 3) float32 over per-tile lists of active
+    blocks: the prepass :func:`active_block_lists` (plain torch) finds, for
+    every tile of ``STREAM_RAY_TILE`` rays, the blocks that some ray of it
+    enters, near to far (``front_to_back``) or in ascending id; the kernel
+    walks only that list and enters a block where a ray passes its AABB
+    against the ray's running best t.
+
+    stream, t_max and the result as for :func:`closest_hit_streamed`.
+    lists: the prepass's (lists, counts) for the same rays and t_max, to
+    spare it (a caller that times the kernel alone)."""
+    _check_rays(orig, direction)
+    R, dev = orig.shape[0], orig.device
+    if t_max is not None:
+        t_max = _per_ray_tmax(t_max, R, dev)
+    if lists is None:
+        lists = active_block_lists(orig, direction, stream, t_max,
+                                   front_to_back)
+    blk, cnt = lists
+    if dev.type == "cpu":
+        return closest_hit_worklist_reference(orig, direction, stream, blk,
+                                              cnt, t_max, t_min)
+    _check_stream(dev, stream)
+    G, NB = -(-R // STREAM_RAY_TILE), stream["num_blocks"]
+    _check_on_card(dev, "lists", (("lists", blk, (G, NB), torch.int32),
+                                  ("counts", cnt, (G,), torch.int32)))
+    o, d = orig.contiguous(), direction.contiguous()
+    prim, t, u, v = _closest_outputs(R, dev)
+    _launch("skybox_rt_closest_hit_worklist", dev,
+            _ptr(o), _ptr(d), _ptr(t_max), _ptr(stream["tri"]),
+            _ptr(stream["aabb"]), _ptr(stream["order"]), _ptr(blk), _ptr(cnt),
+            NB, stream["num_prims"], stream["tri_block"], t_min, R,
+            _ptr(prim), _ptr(t), _ptr(u), _ptr(v))
+    return prim, t, u, v

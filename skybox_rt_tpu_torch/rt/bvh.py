@@ -13,9 +13,11 @@ Node layout is a flat struct-of-arrays:
   node_count   (N,)   i32   prim count (0 => internal)
   prim_order   (P,)   i32   triangle permutation so leaf prims are contiguous
 
-Traversal here is the stackless lockstep walk (engine "bvh"): a second
-oracle that scales past brute force.  The per-ray-stack ``closest_hit`` /
-``any_hit`` of the JAX module are not ported yet (ROADMAP).
+Two traversals, both plain torch: the stackless lockstep walk (engine
+"bvh"), a second oracle that scales past brute force, and the per-ray-stack
+:func:`closest_hit` / :func:`any_hit` that rt.diff's discrete hit selection
+runs on (a vmapped while-loop in the JAX module; here all rays that still
+hold a node advance together, one pop a pass).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 from . import intersect
 
 LEAF_SIZE = 4
+STACK_DEPTH = 64
 
 
 @dataclasses.dataclass
@@ -555,3 +558,86 @@ def any_hit_stackless(stackless_arrays, tri_arrays, orig, direction,
         node[idx] = nxt
         idx = idx[(nxt < N) & ~occ]
     return occluded
+
+
+def closest_hit(bvh_arrays, tri_arrays, orig, direction,
+                t_min=1e-4, t_max=math.inf,
+                leaf_size: int = LEAF_SIZE,
+                stack_depth: int = STACK_DEPTH):
+    """Closest-hit traversal with a stack a ray, for a ray batch.
+
+    bvh_arrays: BVH.as_device_arrays(device); tri_arrays: (v0, e1, e2) in
+    the ORIGINAL primitive order (prim_order indices resolve into them).
+    orig, direction: (R, 3).  Every ray pops one node a pass of a host loop
+    (right child first, as the JAX module pushes left then right) until no
+    ray holds a node; a leaf's best candidate replaces the ray's best under
+    strict ``<``.
+    Returns (prim_id (R,) int32, t, u, v): prim ids in original order, -1 and
+    t = inf on a miss.
+    """
+    nmin, nmax, nleft, nright, nfirst, ncount, prim_order = bvh_arrays
+    v0, e1, e2 = tri_arrays
+    R, dev = orig.shape[0], orig.device
+    P = prim_order.shape[0]
+    inv_d = intersect.inv_dir(direction)
+    ks = torch.arange(leaf_size, device=dev)
+    stack = torch.zeros((R, stack_depth), dtype=torch.int64, device=dev)
+    sp = torch.ones((R,), dtype=torch.int64, device=dev)     # the root waits
+    best_t = torch.broadcast_to(
+        torch.as_tensor(t_max, dtype=torch.float32, device=dev), (R,)).clone()
+    best_p = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros((R,), dtype=torch.float32, device=dev)
+    best_v = torch.zeros((R,), dtype=torch.float32, device=dev)
+    idx = torch.arange(R, device=dev)
+    while idx.numel():
+        top = sp[idx] - 1
+        node = stack[idx, top]
+        o, far = orig[idx], best_t[idx]
+        t0 = (nmin[node] - o) * inv_d[idx]
+        t1 = (nmax[node] - o) * inv_d[idx]
+        tn = torch.minimum(t0, t1).amax(dim=-1)
+        tf = torch.maximum(t0, t1).amin(dim=-1)
+        hit_box = tn.clamp(min=0.0) <= torch.minimum(tf, far)
+        cnt = ncount[node]
+        is_leaf = cnt > 0
+
+        # leaf: up to leaf_size prims, masked
+        first = nfirst[node].long()
+        pids = prim_order[(first[:, None] + ks[None, :]).clamp(0, P - 1)]
+        pids = pids.long()
+        h, t, u, v = intersect.moller_trumbore(
+            o[:, None], direction[idx][:, None], v0[pids], e1[pids],
+            e2[pids], t_min, far[:, None])
+        h = h & (hit_box & is_leaf)[:, None] & (ks[None, :] < cnt[:, None])
+        t_m = torch.where(h, t, torch.full_like(t, math.inf))
+        kb = torch.argmin(t_m, dim=1, keepdim=True)
+        cand_t = t_m.gather(1, kb)[:, 0]
+        better = cand_t < far
+        w = idx[better]
+        kbb = kb[better]
+        best_t[w] = cand_t[better]
+        best_p[w] = pids[better].gather(1, kbb)[:, 0].to(torch.int32)
+        best_u[w] = u[better].gather(1, kbb)[:, 0]
+        best_v[w] = v[better].gather(1, kbb)[:, 0]
+
+        # internal: push the children, left then right
+        push = hit_box & ~is_leaf
+        pi, pt = idx[push], top[push]
+        if pt.numel() and int(pt.max()) + 1 >= stack_depth:
+            raise RuntimeError(f"BVH deeper than the {stack_depth}-entry "
+                               "stack")
+        stack[pi, pt] = nleft[node[push]].long()
+        stack[pi, pt + 1] = nright[node[push]].long()
+        sp[idx] = top + 2 * push.long()
+        idx = idx[sp[idx] > 0]
+    inf = torch.full_like(best_t, math.inf)
+    return best_p, torch.where(best_p >= 0, best_t, inf), best_u, best_v
+
+
+def any_hit(bvh_arrays, tri_arrays, orig, direction, t_min=1e-4, t_max=1.0,
+            leaf_size: int = LEAF_SIZE, stack_depth: int = STACK_DEPTH):
+    """Occlusion query through the full closest-hit traversal (the per-ray
+    stack walk has no early-out; any_hit_stackless has one)."""
+    prim, _, _, _ = closest_hit(bvh_arrays, tri_arrays, orig, direction,
+                                t_min, t_max, leaf_size, stack_depth)
+    return prim >= 0

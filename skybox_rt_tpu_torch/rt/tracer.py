@@ -40,14 +40,8 @@ PALLAS_MAX_TRIS = 15000
 #: ``blocks`` in both packages; it has not been tuned for this card.
 BVH_TRI_BLOCK = 256
 
-ENGINES = ("pallas", "pallas_bvh", "bvh", "brute")
-#: engines of the JAX package whose kernels are not ported yet
-UNPORTED_ENGINES = {
-    "pallas_streamed": "closest_hit_streamed "
-                       "(skybox_rt_tpu/ops/pallas_rt.py:566)",
-    "pallas_worklist": "closest_hit_worklist "
-                       "(skybox_rt_tpu/ops/pallas_rt.py:758)",
-}
+ENGINES = ("pallas", "pallas_bvh", "pallas_streamed", "pallas_worklist",
+           "bvh", "brute")
 COMPACT_METHODS = ("argsort", "argsort_om", "octant", "partition")
 
 PARK_O = (3e7, 3e7, 3e7)
@@ -100,8 +94,11 @@ class RTConfig:
     # CUDA kernels of ops.cuda_rt at or below PALLAS_MAX_TRIS triangles,
     # 'pallas_bvh' above), 'pallas_bvh' (BVH-treelet blocks: the BVH-block
     # CUDA kernels of ops.cuda_rt), 'bvh' (stackless lockstep traversal,
-    # plain torch), 'brute' (all-pairs oracle).  'pallas_streamed' /
-    # 'pallas_worklist' are not ported and raise NotImplementedError.
+    # plain torch), 'brute' (all-pairs oracle).  'pallas_streamed' (dense
+    # sweep over AABB-gated triangle blocks) and 'pallas_worklist' (per-tile
+    # lists of active blocks from a prepass) are kept for comparison, as in
+    # the JAX package: closest-hit kernels of ops.cuda_rt over the clusters'
+    # treelet order, occlusion the same query with prim >= 0.
     engine: str = "pallas"
     # re-compact surviving rays to the front before each bounce.  Dead rays
     # are parked at a far origin and grouped at the tail, so whole warps of
@@ -282,16 +279,10 @@ def _interp3(rows3, u, v):
 def resolve_engine(cfg: RTConfig, num_tris: int) -> str:
     """The engine make_intersectors takes for a scene of num_tris triangles
     ("pallas" stands for the clustered kernels: it is returned only at or
-    below PALLAS_MAX_TRIS); raises NotImplementedError for one whose kernels
-    are not ported."""
+    below PALLAS_MAX_TRIS)."""
     engine = cfg.engine if cfg.use_bvh else "brute"
     if engine == "pallas" and num_tris > PALLAS_MAX_TRIS:
         engine = "pallas_bvh"
-    if engine in UNPORTED_ENGINES:
-        raise NotImplementedError(
-            f"engine {cfg.engine!r} needs {UNPORTED_ENGINES[engine]}, "
-            "which is not ported yet (ROADMAP.md); use 'pallas', "
-            "'pallas_bvh', 'bvh' or 'brute'")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     return engine
@@ -337,6 +328,23 @@ def make_intersectors(scene: RTScene, cfg: RTConfig, device=None):
 
         def occluded(o, d, t_max):
             return cuda_rt.any_hit_bvh(o, d, blocks, t_max=per_ray(t_max, o))
+    elif engine in ("pallas_streamed", "pallas_worklist"):
+        from ..ops import cuda_rt
+
+        # treelet order makes consecutive records spatially tight, so the
+        # blocks' boxes are small and their gates fire
+        stream = cuda_rt.prepare_stream_blocks(
+            *tri, order=bvh_mod.build_clusters(scene.bvh)["order"])
+        query = (cuda_rt.closest_hit_streamed if engine == "pallas_streamed"
+                 else cuda_rt.closest_hit_worklist)
+
+        def closest(o, d, t_max=math.inf):
+            tm = None if t_max is math.inf else per_ray(t_max, o)
+            return query(o, d, stream, t_max=tm)
+
+        def occluded(o, d, t_max):
+            # no any-hit variant: the closest hit inside the bound
+            return query(o, d, stream, t_max=per_ray(t_max, o))[0] >= 0
     elif engine == "bvh":
         bvh_arr = scene.bvh.as_stackless_arrays(device)
         ls = scene.bvh.leaf_size

@@ -1,6 +1,7 @@
 """The port stands without JAX: importing every module of
-skybox_rt_tpu_torch, rendering a raster and a ray-traced frame and taking
-training steps of the differentiable render on the CPU loads neither jax,
+skybox_rt_tpu_torch, rendering a raster frame, a ray-traced frame (every
+engine) and the ray-traced CGLTrace frame, and taking training steps of the
+differentiable render on the CPU loads neither jax,
 optax, orbax nor skybox_rt_tpu, and chip_smoke.py refuses to run without a
 card."""
 import importlib.util
@@ -43,6 +44,26 @@ img = tracer.render(scene, tracer.Camera(eye=(0, 0.5, 3), look_at=(0, 0, 0)),
 small = tracer.render(scene, tracer.Camera(eye=(0, 0.5, 3), look_at=(0, 0, 0)),
                       tracer.RTConfig(width=16, height=16, bounces=1,
                                       shadows=True), device="cpu")
+engines = {}
+for engine in ("pallas_streamed", "pallas_worklist"):
+    cfg = tracer.RTConfig(width=16, height=16, engine=engine, bounces=1,
+                          shadows=True)
+    assert tracer.resolve_engine(cfg, faces.shape[0]) == engine
+    other = tracer.render(scene, tracer.Camera(eye=(0, 0.5, 3),
+                                               look_at=(0, 0, 0)), cfg,
+                          device="cpu")
+    engines[engine] = float((other - small).abs().max())
+from skybox_rt_tpu_torch.rt import diff as rt_diff, frame, raster_bridge
+c3 = cgltrace.load_trace(cgltrace.trace_path("synth_config3"))
+fused = frame.render_trace_rt_fused(c3, 16, 16, device="cpu")
+bridged = raster_bridge.render_trace_rt(c3, 16, 16, engine="brute",
+                                        camera="perspective", device="cpu")
+import torch
+v = torch.tensor(verts, requires_grad=True)
+o, d = tracer.camera_rays(tracer.Camera(eye=(0, 0.5, 3), look_at=(0, 0, 0)),
+                          8, 8, "cpu")
+rt_diff.render_lambert(v, faces, scene.colors, o, d, (0.4, 0.8, 0.45),
+                       device="cpu").sum().backward()
 from skybox_rt_tpu_torch.diff import check, optim, pipeline
 params, static, cfg = check.train_scene(32, subdiv=1, tile_logsize=3,
                                         tex_size=8, tex_tiles=2)
@@ -56,6 +77,10 @@ print(json.dumps({"loaded": loaded, "shape": list(fb.shape),
                   "dtype": str(fb.dtype), "rt_shape": list(img.shape),
                   "rt_hits": int((img[..., :3].sum(-1) > 0).sum()),
                   "rt_default_engine_diff": float((small - img).abs().max()),
+                  "engines": engines,
+                  "config3_shape": list(fused.shape),
+                  "config3_vs_scan": float(abs(fused - bridged).max()),
+                  "rt_diff_grad": float(v.grad.abs().max()),
                   "fit_losses": fit.losses}))
 """
 
@@ -80,7 +105,8 @@ def test_every_module_listed():
               "interop", "_build", "models.make_synth_trace", "core.device",
               "rt.tracer", "rt.bvh", "rt.intersect", "rt.wavefront",
               "ops.cuda_rt", "diff.pipeline", "diff.binning", "diff.cuda_vis",
-              "diff.cuda_texgrad", "diff.optim", "diff.check"):
+              "diff.cuda_texgrad", "diff.optim", "diff.check",
+              "rt.raster_bridge", "rt.frame", "rt.diff"):
         assert f"skybox_rt_tpu_torch.{m}" in MODULES
 
 
@@ -90,6 +116,13 @@ def test_no_jax_after_import_and_render(probe):
     assert probe["rt_shape"] == [16, 16, 4] and probe["rt_hits"] > 20
     # the default engine (the clustered pair) against the all-pairs oracle
     assert probe["rt_default_engine_diff"] <= 2e-5
+    # the comparison engines render the default engine's image
+    assert probe["engines"] == {"pallas_streamed": 0.0,
+                                "pallas_worklist": 0.0}
+    # the ray-traced CGLTrace frame against its own scan oracle
+    assert probe["config3_shape"] == [16, 16, 4]
+    assert probe["config3_vs_scan"] <= 1e-3
+    assert probe["rt_diff_grad"] > 0
     # three Adam steps of the differentiable render, each one downhill
     losses = probe["fit_losses"]
     assert len(losses) == 3 and losses[2] < losses[1] < losses[0]
@@ -158,13 +191,15 @@ def test_ctypes_signatures_match_the_sources():
     assert sorted(found) == sorted(_build._SIGNATURES)
     assert {"skybox_rt_closest_hit_clustered", "skybox_rt_any_hit_clustered",
             "skybox_rt_closest_hit_flat", "skybox_diff_visibility_hard",
-            "skybox_diff_accumulate_rows"} <= set(found)
+            "skybox_diff_accumulate_rows", "skybox_rt_closest_hit_bvh_after",
+            "skybox_rt_closest_hit_streamed",
+            "skybox_rt_closest_hit_worklist"} <= set(found)
     for name, kinds in found.items():
         assert kinds == _build._SIGNATURES[name], name
     names = {os.path.basename(s) for s in _build._sources()}
     assert names == {"raster_visibility.cu", "rt_bvh.cu", "rt_clustered.cu",
                      "rt_common.cuh", "diff_visibility.cu",
-                     "diff_accumulate.cu"}
+                     "diff_accumulate.cu", "rt_streamed.cu"}
 
 
 def test_package_data_ships_every_source():
@@ -198,3 +233,26 @@ def test_every_source_builds_on_card():
     for src in _build._sources():
         if src.endswith(".cu"):
             assert os.path.basename(src) in log
+
+
+@pytest.mark.parametrize("name", ["synth_draw3d", "synth_config3"])
+def test_committed_trace_is_what_the_generator_writes(name, tmp_path):
+    """The committed npz equals, array for array, what make_synth_trace
+    writes now."""
+    import numpy as np
+
+    from skybox_rt_tpu_torch.geom import cgltrace
+    from skybox_rt_tpu_torch.models import make_synth_trace
+    out = str(tmp_path / f"{name}.npz")
+    make_synth_trace.main([name, out])
+    with np.load(out) as new, np.load(cgltrace.trace_path(name)) as old:
+        assert sorted(new.files) == sorted(old.files)
+        for k in new.files:
+            assert new[k].dtype == old[k].dtype, k
+            np.testing.assert_array_equal(new[k], old[k], err_msg=k)
+    trace = cgltrace.load_trace(out)
+    if name == "synth_config3":
+        masks = [dc.states.color_writemask for dc in trace.drawcalls]
+        assert masks == [0xFFFFFFFF] * 6 + [0x00FFFFFF]
+        assert [dc.indices.shape[0] for dc in trace.drawcalls] == [
+            2, 5120, 5120, 16, 1280, 1280, 2]

@@ -204,17 +204,22 @@ def test_default_config_renders_through_the_clustered_pair(calls):
 @pytest.mark.parametrize("num_tris,engine,resolved", [
     (15000, "pallas", "pallas"), (15001, "pallas", "pallas_bvh"),
     (1, "pallas", "pallas"), (15000, "pallas_bvh", "pallas_bvh"),
-    (15001, "bvh", "bvh"), (100, "brute", "brute")])
+    (15001, "bvh", "bvh"), (100, "brute", "brute"),
+    (100, "pallas_streamed", "pallas_streamed"),
+    (15001, "pallas_worklist", "pallas_worklist")])
 def test_resolve_engine(num_tris, engine, resolved):
     assert tracer.PALLAS_MAX_TRIS == jax_tracer.PALLAS_MAX_TRIS == 15000
     cfg = tracer.RTConfig(width=8, height=8, engine=engine)
     assert tracer.resolve_engine(cfg, num_tris) == resolved
     assert tracer.resolve_engine(tracer.RTConfig(
         width=8, height=8, engine=engine, use_bvh=False), num_tris) == "brute"
-    for unported in ("pallas_streamed", "pallas_worklist"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tracer.resolve_engine(tracer.RTConfig(
-                width=8, height=8, engine=unported), num_tris)
+    # the comparison engines resolve to themselves at any size
+    for kept in ("pallas_streamed", "pallas_worklist"):
+        assert tracer.resolve_engine(tracer.RTConfig(
+            width=8, height=8, engine=kept), num_tris) == kept
+    with pytest.raises(ValueError, match="unknown engine"):
+        tracer.resolve_engine(tracer.RTConfig(
+            width=8, height=8, engine="pallas_nope"), num_tris)
 
 
 # ---- the committed golden of the full-width scene -------------------------

@@ -241,25 +241,23 @@ def test_vertex_normals_and_shade_arrays_match_jax():
 @pytest.mark.parametrize("engine", ["pallas", "pallas_streamed",
                                     "pallas_worklist"])
 def test_unported_engines_raise(engine):
-    """No engine whose kernels are missing falls through to another; the
-    default "pallas", whose clustered kernels are ported, no longer raises
-    on a scene of at most PALLAS_MAX_TRIS triangles."""
+    """Every engine of the JAX package has its kernels now: none raises
+    NotImplementedError, each resolves to itself on a scene of at most
+    PALLAS_MAX_TRIS triangles and renders the all-pairs oracle's frame
+    (atol 2e-5); only an unknown name raises."""
     scene, cam, o, d, _, _ = _reference("primary")
     cfg = tracer.RTConfig(width=16, height=16, engine=engine)
-    if engine == "pallas":
-        assert tracer.resolve_engine(cfg, scene.faces.shape[0]) == "pallas"
-        frame, (po, pd) = tracer.make_frame_fn(scene, cam, cfg, device="cpu")
-        brute = tracer.render(scene, cam, tracer.RTConfig(
-            width=16, height=16, engine="brute"), device="cpu")
-        perm, _ = wavefront.tile_order_perm(16, 16, 32)
-        # po, pd are in tile order; brute renders scanline order
-        assert torch.equal(po[np.argsort(perm)],
-                           tracer.camera_rays(cam, 16, 16, "cpu")[0])
-        np.testing.assert_allclose(frame(po, pd).numpy(), brute.numpy(),
-                                   atol=2e-5)
-    else:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tracer.make_frame_fn(scene, cam, cfg, device="cpu")
+    assert engine in tracer.ENGINES
+    assert tracer.resolve_engine(cfg, scene.faces.shape[0]) == engine
+    frame, (po, pd) = tracer.make_frame_fn(scene, cam, cfg, device="cpu")
+    brute = tracer.render(scene, cam, tracer.RTConfig(
+        width=16, height=16, engine="brute"), device="cpu")
+    perm, _ = wavefront.tile_order_perm(16, 16, 32)
+    # po, pd are in tile order; brute renders scanline order
+    assert torch.equal(po[np.argsort(perm)],
+                       tracer.camera_rays(cam, 16, 16, "cpu")[0])
+    np.testing.assert_allclose(frame(po, pd).numpy(), brute.numpy(),
+                               atol=2e-5)
     with pytest.raises(ValueError):
         tracer.make_frame_fn(scene, cam, tracer.RTConfig(
             width=16, height=16, engine="nope"), device="cpu")
