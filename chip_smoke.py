@@ -1,8 +1,10 @@
-"""Drive the PyTorch port's five paths on one CUDA card and check them: the
+"""Drive the PyTorch port's six paths on one CUDA card and check them: the
 exact-int draw3d raster frame, the ray-traced frame of the large scene, the
 ray-traced frame of the small scene, the training step of the differentiable
-render, and the ray-traced CGLTrace frame (config 3), with the two comparison
-engines of the ray tracer beside it.
+render, the ray-traced CGLTrace frame (config 3), with the two comparison
+engines of the ray tracer beside it, and the apps with the blocked matrix
+product.  Every raster phase bins its draws with the native C++ engine
+(geom.native, built with g++ in phase 2).
 
     python3 chip_smoke.py
 
@@ -12,7 +14,8 @@ exits non-zero, and only a run where every phase passed prints the final
 
   1. device  — needs torch.cuda; prints nvidia-smi's name and power limit
   2. build   — compiles skybox_rt_tpu_torch/csrc/*.cu with nvcc (sm_90a),
-               one nvcc per source at the same time
+               one nvcc per source at the same time, and csrc/binning.cpp
+               with g++
   3. kernel  — the CUDA visibility kernel against its plain torch version,
                bit for bit: every draw of the synthetic trace at 256x256,
                fused and K-slot, tile_logsize 3..6, stencil/depth OM
@@ -168,6 +171,29 @@ exits non-zero, and only a run where every phase passed prints the final
                worklist kernels on the small scene's primary launch beside the
                clustered and the flat one, the worklist's prepass apart from
                its kernel, the three engines' frames
+
+  26. apps_sgemm_vs_plain — kernel #12 (csrc/apps_sgemm.cu) against its
+               plain version, bit for bit: 256x384x128, the ragged 200x72x136
+               with block (8, 8, 8), and two 128-row stripes of 4096^3; and
+               against torch.matmul (float32, no TF32) within the forward
+               error bound of the two float32 sums, 2 k 2^-24 (|A||B|)_ij
+  27. apps_on_card — every app of apps/compute.py (the 22 dogfood cases
+               too) and apps/opencl.py against its numpy oracle at the JAX
+               tests' sizes and tolerances, and blackscholes on 4,000,000
+               options, bfs on a seeded 1,048,576-node graph of 6 edges a
+               node; LBM 16x8x8 three steps against the per-cell oracle
+               (rtol 2e-5, atol 1e-7), 120x120x150 one step against the same
+               code on the host's CPU and ten steps finite with FLAGS and
+               margins untouched; om and tex at 64x64 and 1024x1024 against
+               closed forms, every texel format and filter at 64x64 equal to
+               the CPU run.  The launch count is set to 0 just before and
+               read just after: #12 twice (the 256x384x128 and 4096^3
+               products)
+  28. apps_timing — CUDA events, median of 20: #12 at 4096^3, its plain
+               version (of 3) and torch.matmul; an LBM step at 120x120x150;
+               blackscholes on 4,000,000 options; host milliseconds a draw
+               of the native and the numpy binning engines (median of 5) on
+               synth_draw3d at 256x256 and 1024x1024
 
 The ``kernels`` line gives each kernel's time beside its bound, both terms
 of it: ``bound_bytes_ms`` (inputs read once, outputs written once; holds
@@ -1901,6 +1927,422 @@ def config3_phases(dev, card) -> list:
     return [after_entry] + stream_entries
 
 
+APPS_GEMM = 4096        # the full-size product: 4096 x 4096 x 4096
+# Stripes of rows the plain version computes at the full size (rows of C are
+# independent, so a stripe of the kernel's C is held to the plain version of
+# the same rows of A)
+APPS_GEMM_STRIPES = ((0, 128), (APPS_GEMM - 128, APPS_GEMM))
+BS_OPTIONS = 4_000_000  # the NVIDIA BlackScholes sample's OPT_N
+BFS_NODES = 1 << 20     # Rodinia graph1MW_6: 1,048,576 nodes, ~6 edges a node
+LBM_FULL = (120, 120, 150)  # 2,160,000 cells, 172.8 MB of grid
+APPS_TEX = 1024         # om_app and tex_app at 1024x1024
+
+
+def dogfood_inputs(name, n=256):
+    """The JAX test's inputs of a dogfood case, from a seed of its name."""
+    import zlib
+    r = np.random.default_rng(zlib.crc32(name.encode()))
+    if name.startswith("i"):
+        return (r.integers(-1000, 1000, size=n).astype(np.int32),
+                r.integers(1, 1000, size=n).astype(np.int32))
+    return ((r.standard_normal(n) * 4 + 0.5).astype(np.float32),
+            (np.abs(r.standard_normal(n)) + 0.5).astype(np.float32))
+
+
+def lbm_oracle_step(lbm, cfg, grid):
+    """One stream-collide step of the reference kernel (tests/opencl/lbm/
+    kernel.cl:16-175), cell by cell in numpy, GATHER layout."""
+    out = grid.copy()
+    d = lbm.DIRS.astype(np.float32)
+    for z in range(cfg.size_z):
+        for y in range(cfg.size_y):
+            for x in range(cfg.size_x):
+                f = np.array([grid[cfg.calc_index(x - dx, y - dy, z - dz, e)]
+                              for e, (dx, dy, dz) in enumerate(lbm.DIRS)],
+                             np.float32)
+                fi = cfg.calc_index(x, y, z, lbm.FLAGS)
+                flags = grid[fi:fi + 1].view(np.uint32)[0]
+                if flags & lbm.OBSTACLE:
+                    new = f[lbm.OPPOSITE]
+                else:
+                    rho = np.float32(f.sum())
+                    ux, uy, uz = (d.T @ f) / rho
+                    if flags & lbm.ACCEL:
+                        ux, uy, uz = (np.float32(0.005), np.float32(0.002),
+                                      np.float32(0.0))
+                    u2 = np.float32(1.5) * (ux * ux + uy * uy + uz * uz) \
+                        - np.float32(1.0)
+                    cu = d[:, 0] * ux + d[:, 1] * uy + d[:, 2] * uz
+                    new = (np.float32(1.0) - lbm.OMEGA) * f \
+                        + lbm.WEIGHTS * (lbm.OMEGA * rho) \
+                        * (cu * (np.float32(4.5) * cu + np.float32(3.0)) - u2)
+                for e in range(lbm.FLAGS):
+                    out[cfg.calc_index(x, y, z, e)] = new[e]
+    return out
+
+
+def close(what, got, want, rtol, atol):
+    """Raises unless got is within rtol / atol of want; returns max |diff|."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape} != {want.shape}")
+    if got.dtype.kind in "iub" and want.dtype.kind in "iub":
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{what}: {int((got != want).sum())} "
+                                 "values differ")
+        return 0.0
+    if not np.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: max |diff| "
+                             f"{float(np.abs(got - want).max())} beyond "
+                             f"rtol {rtol}, atol {atol}")
+    return float(np.abs(got.astype(np.float64) - want).max())
+
+
+def apps_phases(dev, card) -> list:
+    """Phases 26 to 28: kernel #12 against its plain version and the
+    library product, every app against its numpy oracle on the card, and
+    the timings; returns #12's entry of the kernels line."""
+    from skybox_rt_tpu_torch.apps import (compute, cuda_sgemm, lbm, om_app,
+                                          opencl, tex_app)
+    from skybox_rt_tpu_torch.core import fixed
+    from skybox_rt_tpu_torch.geom import binning, cgltrace
+    from skybox_rt_tpu_torch.texture import convert
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def gemm_inputs(m, k, n, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.randn((m, k), generator=g, device=dev),
+                torch.randn((k, n), generator=g, device=dev))
+
+    # 26. #12 against its plain version, bit for bit, and the library
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("torch.backends.cuda.matmul.allow_tf32 is set: "
+                             "the library product would not be float32")
+    checks, err = [], 0
+    for (m, k, n), block in (((256, 384, 128), (128, 128, 128)),
+                             ((200, 72, 136), (8, 8, 8)),
+                             ((APPS_GEMM,) * 3, (128, 128, 128))):
+        a, b = gemm_inputs(m, k, n, seed=m + k + n)
+        got = compute.sgemm_pallas(a, b, block=block)
+        if m == APPS_GEMM:
+            for r0, r1 in APPS_GEMM_STRIPES:
+                err = max(err, max_abs_err(
+                    [got[r0:r1].view(torch.int32)],
+                    [cuda_sgemm.sgemm_reference(a[r0:r1], b).view(
+                        torch.int32)]))
+            rows = sum(r1 - r0 for r0, r1 in APPS_GEMM_STRIPES)
+        else:
+            err = max(err, max_abs_err(
+                [got.view(torch.int32)],
+                [cuda_sgemm.sgemm_reference(a, b).view(torch.int32)]))
+            rows = m
+        # the forward error bound of a k-term float32 dot product, gamma_k
+        # = k u (u = 2^-24) times sum |a||b|, once for each of the two sums
+        mm = torch.matmul(a, b)
+        scale = torch.matmul(a.abs(), b.abs())
+        ratio = float(((got - mm).abs() / (2 * k * 2.0 ** -24 * scale)).max())
+        if not ratio <= 1.0:
+            raise AssertionError(f"sgemm {m}x{k}x{n} vs torch.matmul beyond "
+                                 f"2 k u sum|a||b|: ratio {ratio}")
+        checks.append({"m": m, "k": k, "n": n, "block": list(block),
+                       "rows_vs_plain": rows, "bit_equal": True,
+                       "vs_matmul_max_abs": float((got - mm).abs().max()),
+                       "vs_matmul_of_bound": ratio})
+    phase("apps_sgemm_vs_plain", checks=checks, max_abs_err=err,
+          matmul_bound="|kernel - matmul| <= 2 k 2^-24 (|A||B|)_ij")
+
+    # 27. every app on the card against its numpy oracle; the counts are set
+    # to 0 just before the apps run and read just after
+    cuda_sgemm.reset_launch_count()
+    oracle = {}
+    r = np.random.default_rng(1)
+    x = r.standard_normal(4096).astype(np.float32)
+    y = r.standard_normal(4096).astype(np.float32)
+    oracle["vecadd"] = close("vecadd", compute.vecadd(cuda(x), cuda(y)).cpu(),
+                             x + y, 0, 0)
+    a = r.standard_normal((128, 96)).astype(np.float32)
+    b = r.standard_normal((96, 64)).astype(np.float32)
+    oracle["sgemm"] = close("sgemm", compute.sgemm(cuda(a), cuda(b)).cpu(),
+                            a @ b, 1e-5, 1e-4)
+    a = r.standard_normal((256, 384)).astype(np.float32)
+    b = r.standard_normal((384, 128)).astype(np.float32)
+    oracle["sgemm_pallas"] = close(
+        "sgemm_pallas", compute.sgemm_pallas(cuda(a), cuda(b)).cpu(), a @ b,
+        1e-5, 1e-3)
+    ga, gb = gemm_inputs(APPS_GEMM, APPS_GEMM, APPS_GEMM, seed=7)
+    big = compute.sgemm_pallas(ga, gb)
+    big_ratio = float(((big - torch.matmul(ga, gb)).abs()
+                       / (2 * APPS_GEMM * 2.0 ** -24
+                          * torch.matmul(ga.abs(), gb.abs()))).max())
+    if not big_ratio <= 1.0:
+        raise AssertionError(f"sgemm_pallas 4096^3: ratio {big_ratio}")
+    oracle["sgemm_pallas_4096_of_bound"] = big_ratio
+    h, w = 33, 47
+    padded = np.zeros((h + 2, w + 2), np.float32)
+    padded[1:-1, 1:-1] = r.standard_normal((h, w)).astype(np.float32)
+    wts = r.standard_normal((3, 3)).astype(np.float32)
+    ref = np.array([[np.sum(padded[yy:yy + 3, xx:xx + 3] * wts,
+                            dtype=np.float32) for xx in range(w)]
+                    for yy in range(h)], np.float32)
+    oracle["conv3x"] = close("conv3x", compute.conv3x(cuda(padded),
+                                                      cuda(wts)).cpu(),
+                             ref, 1e-5, 1e-5)
+    vol = r.standard_normal((9, 9, 9)).astype(np.float32)
+    p = np.pad(vol, 1, mode="edge")
+    ref = sum(p[dz:dz + 9, dy:dy + 9, dx:dx + 9] for dz in range(3)
+              for dy in range(3) for dx in range(3)) / 27.0
+    oracle["stencil3d"] = close("stencil3d", compute.stencil3d(
+        cuda(vol)).cpu(), ref, 1e-5, 1e-5)
+    xs = r.integers(0, 50, size=257).astype(np.int32)
+    oracle["rank_sort"] = close("rank_sort", compute.rank_sort(
+        cuda(xs)).cpu(), np.sort(xs, kind="stable"), 0, 0)
+    src = r.integers(-20, 20, size=64).astype(np.int32)
+    oracle["diverge"] = close("diverge", compute.diverge(cuda(src)).cpu(),
+                              compute.diverge_oracle(src), 0, 0)
+    for name, (fn, ora) in sorted(compute.DOGFOOD_CASES.items()):
+        da, db = dogfood_inputs(name)
+        out = fn(cuda(da), cuda(db))
+        want = ora(da, db)
+        got = (fixed.to_numpy_u32(out) if want.dtype == np.uint32
+               else out.cpu().numpy())
+        oracle[f"dogfood_{name}"] = close(name, got, want, 1e-5, 1e-5)
+
+    x = r.standard_normal(2048).astype(np.float32)
+    y = r.standard_normal(2048).astype(np.float32)
+    oracle["saxpy"] = close("saxpy", opencl.saxpy(2.5, cuda(x), cuda(y)).cpu(),
+                            2.5 * x + y, 1e-5, 1e-6)
+    oracle["dotproduct"] = close("dotproduct", float(opencl.dotproduct(
+        cuda(x), cuda(y))), np.dot(x, y), 1e-4, 0)
+    oracle["psum_reduce"] = close("psum", float(opencl.psum_reduce(cuda(x))),
+                                  x.sum(), 1e-4, 1e-4)
+    tm = r.standard_normal((37, 53)).astype(np.float32)
+    oracle["transpose"] = close("transpose", opencl.transpose(
+        cuda(tm)).cpu(), tm.T, 0, 0)
+    bs = {}
+    for label, n in (("blackscholes", 4096),
+                     ("blackscholes_4M", BS_OPTIONS)):
+        S = r.uniform(5.0, 30.0, n).astype(np.float32)
+        X = r.uniform(1.0, 100.0, n).astype(np.float32)
+        T = r.uniform(0.25, 10.0, n).astype(np.float32)
+        call, put = opencl.blackscholes(cuda(S), cuda(X), cuda(T), 0.02, 0.30)
+        c_ref, p_ref = opencl.blackscholes_oracle(S, X, T, 0.02, 0.30)
+        # atol 1e-4 as the JAX test; rtol 1e-5 for the 1-2 ulp of float32
+        # exp / log between numpy and the card on prices up to 100
+        oracle[label] = max(close(label + " call", call.cpu(), c_ref, 1e-5,
+                                  1e-4),
+                            close(label + " put", put.cpu(), p_ref, 1e-5,
+                                  1e-4))
+        bs[label] = (cuda(S), cuda(X), cuda(T))
+    pts = r.standard_normal((1000, 2)).astype(np.float32)
+    q = np.array([0.3, -0.2], np.float32)
+    dist, idx = opencl.nearn(cuda(pts), cuda(q))
+    ref = np.sqrt(((pts - q) ** 2).sum(1))
+    oracle["nearn"] = close("nearn", dist.cpu(), ref, 1e-5, 1e-6)
+    if int(idx) != int(np.argmin(ref)):
+        raise AssertionError("nearn argmin")
+    pts = r.standard_normal((500, 3)).astype(np.float32)
+    cen = r.standard_normal((7, 3)).astype(np.float32)
+    assign = opencl.kmeans_assign(cuda(pts), cuda(cen))
+    ref_assign = np.argmin(((pts[:, None] - cen[None]) ** 2).sum(-1), axis=1)
+    oracle["kmeans_assign"] = close("kmeans_assign", assign.cpu(),
+                                    ref_assign, 0, 0)
+    upd = opencl.kmeans_update(cuda(pts), assign, 7).cpu().numpy()
+    ref = np.stack([pts[ref_assign == k].mean(0) if (ref_assign == k).any()
+                    else np.zeros(3, np.float32) for k in range(7)])
+    oracle["kmeans_update"] = close("kmeans_update", upd, ref, 1e-4, 1e-5)
+    dense = r.standard_normal((40, 60)).astype(np.float32)
+    dense[r.random((40, 60)) > 0.15] = 0.0
+    xv = r.standard_normal(60).astype(np.float32)
+    rows_, cols_ = np.nonzero(dense)
+    row_ptr = np.concatenate([[0], np.cumsum(np.bincount(rows_, minlength=40))
+                              ]).astype(np.int32)
+    oracle["spmv_csr"] = close("spmv", opencl.spmv_csr(
+        cuda(dense[rows_, cols_]), cuda(cols_.astype(np.int32)),
+        cuda(opencl.expand_row_ptr(row_ptr)), cuda(xv), 40).cpu(),
+        dense @ xv, 1e-4, 1e-4)
+    bfs_runs = {}
+    for label, n, m in (("bfs_200", 200, 600), ("bfs_1M", BFS_NODES,
+                                                6 * BFS_NODES)):
+        es = r.integers(0, n, m).astype(np.int32)
+        ed = r.integers(0, n, m).astype(np.int32)
+        t0 = time.perf_counter()
+        cost = opencl.bfs(cuda(es), cuda(ed), n).cpu().numpy()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        oracle[label] = close(label, cost, opencl.bfs_oracle(es, ed, n), 0, 0)
+        bfs_runs[label] = {"nodes": n, "edges": m, "levels": int(cost.max()),
+                           "reached": int((cost >= 0).sum()),
+                           "card_s": card_s,
+                           "oracle_s": time.perf_counter() - t0}
+    A = r.standard_normal((24, 24)).astype(np.float32)
+    A += np.eye(24, dtype=np.float32) * (np.abs(A).sum(1).max() + 1.0)
+    bb = r.standard_normal(24).astype(np.float32)
+    U, c = opencl.gaussian_eliminate(cuda(A), cuda(bb))
+    U, c = U.cpu().numpy(), c.cpu().numpy()
+    if not np.abs(np.tril(U, -1)).max() < 1e-3:
+        raise AssertionError("gaussian: below-diagonal entries remain")
+    oracle["gaussian"] = close("gaussian", A @ opencl.back_substitute(U, c),
+                               bb, 0, 5e-2)
+    src16 = (r.random((16, 16), np.float32) * 100.0).astype(np.float32)
+    m9 = r.standard_normal(9).astype(np.float32)
+    ref = np.zeros((16, 16), np.float32)
+    for yy in range(1, 15):
+        for xx in range(1, 15):
+            acc = np.float32(0)
+            for k, (dy, dx) in enumerate(opencl._TAPS):
+                acc = np.float32(acc + np.float32(src16[yy + dy, xx + dx]
+                                                  * m9[k]))
+            ref[yy, xx] = acc
+    oracle["sfilter"] = close("sfilter", opencl.sfilter(
+        cuda(src16), cuda(m9)).cpu(), ref, 1e-5, 1e-4)
+    A32 = r.standard_normal((32, 32)).astype(np.float32)
+    B32 = r.standard_normal((32, 32)).astype(np.float32)
+    oracle["sgemm3"] = close("sgemm3", opencl.sgemm3(cuda(A32),
+                                                     cuda(B32)).cpu(),
+                             A32.astype(np.float64) @ B32, 1e-5, 1e-5)
+
+    # LBM: the JAX test's lattice against the per-cell oracle, three steps
+    small = lbm.LBMConfig(16, 8, 8)
+    grid = lbm.init_ldc(small)
+    step = lbm.make_step(small, device=dev)
+    g, want = cuda(grid), grid
+    for _ in range(3):
+        g = step(g)
+        want = lbm_oracle_step(lbm, small, want)
+    oracle["lbm_16x8x8"] = close("lbm", g.cpu(), want, 2e-5, 1e-7)
+    # and at full size: one step against the same code on the host's CPU,
+    # then ten steps finite with FLAGS and margins untouched
+    cfg = lbm.LBMConfig(*LBM_FULL)
+    grid = lbm.init_ldc(cfg)
+    one = lbm.make_step(cfg, device=dev)(cuda(grid)).cpu().numpy()
+    oracle["lbm_full_step_vs_cpu"] = close(
+        "lbm full step", one, lbm.make_step(cfg, device="cpu")(
+            torch.from_numpy(grid)).numpy(), 2e-5, 1e-7)
+    out = lbm.run(cfg, steps=10, grid=grid, device=dev)
+    _, _, flags_idx = lbm.make_indices(cfg)
+    bits, gbits = out.view(np.uint32), grid.view(np.uint32)
+    if not (np.isfinite(out).all()
+            and np.array_equal(bits[flags_idx], gbits[flags_idx])
+            and np.array_equal(bits[:cfg.margin], gbits[:cfg.margin])
+            and np.array_equal(bits[-cfg.margin:], gbits[-cfg.margin:])):
+        raise AssertionError("lbm full: not finite, or FLAGS / margins moved")
+    vel = lbm.velocity_field(cfg, out)
+    if not (np.isfinite(vel).all() and np.abs(vel).max() > 1e-4):
+        raise AssertionError("lbm full: no flow")
+
+    # om and tex at the JAX tests' sizes and at 1024x1024, against closed
+    # forms: the whitebox is white, a blended band is Div255(0xFF a + 0x80)
+    # over the black clear, point sampling 1:1 returns the texels, and the
+    # two-stage app is the Div255 product of two one-stage runs
+    for size in (64, APPS_TEX):
+        fb = om_app.run(size, size, device=dev)
+        if not (fb == 0xFFFFFFFF).all():
+            raise AssertionError(f"om whitebox {size}")
+        tasks = 16 if size == 64 else 64
+        fb = om_app.run(size, size, blend_enable=True, num_tasks=tasks,
+                        device=dev)
+        tile_h = size // tasks
+        alpha_step = np.float32(255.0) / np.float32(tile_h)
+        for task in range(tasks):
+            al = int(np.float32(task) * alpha_step) & 0xFF
+            e = 0xFF * al + 0x80
+            e = (e + (e >> 8)) >> 8
+            band = fb[task * tile_h:(task + 1) * tile_h]
+            if not ((band >> 16) & 0xFF == e).all():
+                raise AssertionError(f"om blend band {task} at {size}")
+        rgba = r.integers(0, 256, size=(size, size, 4)).astype(np.uint8)
+        texels = convert.rgba_to_texels(rgba, 0)
+        for g in (0, 1):
+            got = tex_app.run(rgba, filter_g=g, device=dev)
+            if not np.array_equal(got, texels):
+                raise AssertionError(f"tex g{g} at {size}: not the texels")
+        rgba1 = r.integers(0, 256, size=(size, size, 4)).astype(np.uint8)
+        prod = (np.stack([(texels.astype(np.uint64) >> s) & 0xFF
+                          for s in (24, 16, 8, 0)], -1)
+                * np.stack([(convert.rgba_to_texels(rgba1, 0).astype(
+                    np.uint64) >> s) & 0xFF for s in (24, 16, 8, 0)], -1)
+                + 0x80)
+        ch = (prod + (prod >> 8)) >> 8
+        want = ((ch[..., 0] << 24) | (ch[..., 1] << 16) | (ch[..., 2] << 8)
+                | ch[..., 3]).astype(np.uint32)
+        if not np.array_equal(tex_app.run_multitex(rgba, rgba1, device=dev),
+                              want):
+            raise AssertionError(f"run_multitex at {size}")
+    # every format and filter at 64x64 on the card == the CPU run (held to
+    # the JAX package bit for bit by tests/test_torch_apps_units.py)
+    rgba = r.integers(0, 256, size=(64, 64, 4)).astype(np.uint8)
+    for fmt in range(7):
+        for g in range(3):
+            s = 0.5 if g == 2 else 1.0
+            if not np.array_equal(
+                    tex_app.run(rgba, fmt=fmt, filter_g=g, scale=s,
+                                device=dev),
+                    tex_app.run(rgba, fmt=fmt, filter_g=g, scale=s,
+                                device="cpu")):
+                raise AssertionError(f"tex fmt {fmt} g{g}: card != CPU")
+    launches = cuda_sgemm.launch_count
+    if launches != 2:
+        raise AssertionError(f"sgemm kernel launches {launches}, expected 2")
+    phase("apps_on_card", launches={"apps_sgemm": launches},
+          max_abs_diff=oracle, bfs=bfs_runs, lbm_full=list(LBM_FULL),
+          blackscholes_options=BS_OPTIONS, om_tex_size=APPS_TEX,
+          tex_formats_filters=21, equal=True)
+
+    # 28. timing (printed, not judged)
+    ga, gb = gemm_inputs(APPS_GEMM, APPS_GEMM, APPS_GEMM, seed=9)
+    n3 = APPS_GEMM
+    k_ms = median_ms(lambda: cuda_sgemm.sgemm(ga, gb))
+    lib_ms = median_ms(lambda: torch.matmul(ga, gb))
+    p_ms = median_ms(lambda: cuda_sgemm.sgemm_reference(ga, gb), reps=3,
+                     warmup=1)
+    gemm_bound = bound(nbytes(ga, gb) + 4 * n3 * n3, 2 * n3 ** 3)
+    timing = {"sgemm_4096": {
+        "kernel_ms": k_ms, "plain_ms": p_ms, "matmul_ms": lib_ms,
+        "kernel_tflops": 2 * n3 ** 3 / k_ms / 1e9,
+        "matmul_tflops": 2 * n3 ** 3 / lib_ms / 1e9,
+        "of_bound": gemm_bound["bound_ms"] / k_ms, **gemm_bound}}
+    gl = cuda(lbm.init_ldc(cfg))
+    lstep = lbm.make_step(cfg, device=dev)
+    lbm_ms = median_ms(lambda: lstep(gl))
+    cells = cfg.size_x * cfg.size_y * cfg.size_z
+    timing["lbm_step"] = {"cells": cells, "ms": lbm_ms,
+                          "mcells_per_s": cells / lbm_ms / 1e3,
+                          "grid_mb": gl.numel() * 4 / 1e6}
+    S, X, T = bs["blackscholes_4M"]
+    timing["blackscholes_4M_ms"] = median_ms(
+        lambda: opencl.blackscholes(S, X, T, 0.02, 0.30))
+    trace = cgltrace.load_trace(cgltrace.trace_path("synth_draw3d"))
+    host = {}
+    for size in (SIZE, 1024):
+        for engine, fn in (("native", binning.bin_drawcall),
+                           ("numpy", binning.bin_drawcall_py)):
+            per_draw = []
+            for dc in trace.drawcalls:
+                ts = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    fn(dc.pos, dc.indices, dc.color, dc.texcoord, size, size,
+                       dc.near, dc.far, 5)
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                per_draw.append(float(np.median(ts)))
+            host[f"{engine}_{size}"] = {"ms_a_draw": per_draw,
+                                        "ms_a_frame": sum(per_draw)}
+    timing["host_binning"] = host
+    phase("apps_timing", card=card, reps=REPS, **timing)
+
+    t = timing["sgemm_4096"]
+    return [{
+        "name": "apps_sgemm", "route": "cuda",
+        "source": "skybox_rt_tpu_torch/csrc/apps_sgemm.cu",
+        "replaces": "skybox_rt_tpu/apps/compute.py:56",
+        "launches": launches, "max_abs_err": err, "ms": t["kernel_ms"],
+        "plain_ms": t["plain_ms"], **gemm_bound,
+        "library_ms": t["matmul_ms"],   # torch.matmul, float32 (no TF32)
+        "shape": f"{n3} x {n3} x {n3}"}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1922,12 +2364,18 @@ def main() -> int:
     from skybox_rt_tpu_torch.ref import driver
 
     # 2. build
+    from skybox_rt_tpu_torch.geom import native
+    t0 = time.perf_counter()
+    native_lib = native.build()
+    native_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
     with open(lib_path + ".log") as f:
         log = f.read().splitlines()
     phase("build", seconds=round(time.perf_counter() - t0, 3),
+          native_binning=os.path.relpath(native_lib, REPO),
+          native_seconds=round(native_s, 3),
           library=os.path.relpath(lib_path, REPO), nvcc=log[0],
           ptxas=[ln.strip() for ln in log
                  if "registers" in ln or "spill" in ln])
@@ -2080,7 +2528,8 @@ def main() -> int:
     phase("timing", card=card, reps=REPS, **timings)
 
     rt_entries = (rt_phases(dev, card) + small_phases(dev, card)
-                  + diff_phases(dev, card) + config3_phases(dev, card))
+                  + diff_phases(dev, card) + config3_phases(dev, card)
+                  + apps_phases(dev, card))
 
     print(card)
     p256 = timings["pass1_256"]

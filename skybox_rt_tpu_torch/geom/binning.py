@@ -1,8 +1,9 @@
 """Tile binning: primitives -> per-tile primitive lists + raster-ready arrays.
 
-Counterpart of skybox_rt_tpu.geom.binning's ``bin_drawcall_py`` (numpy),
-which the JAX package's native C++ engine (native/binning.cpp) is held to
-bit for bit; the port runs the numpy engine.
+Counterpart of skybox_rt_tpu.geom.binning.  :func:`bin_drawcall` runs the
+port's native C++ engine (geom.native, csrc/binning.cpp), as the JAX
+package's dispatcher does; :func:`bin_drawcall_py` is the numpy engine it is
+held to bit for bit, which ``SKYBOX_NATIVE=0`` selects instead.
 
 The analog of ``graphics::Binning`` (sim/common/gfxutil.cpp:103-276), with a
 dense output layout: instead of the reference's serialized tilebuf /
@@ -20,10 +21,11 @@ reference's per-tile pid lists (gfxutil.cpp:244-249).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
-from . import transform
+from . import native, transform
 
 F32 = np.float32
 
@@ -42,16 +44,42 @@ class BinnedDrawcall:
     tile_logsize: int
     num_prims: int
 
+    @property
+    def num_tiles(self):
+        return self.tile_xy.shape[0]
 
-def bin_drawcall_py(pos, indices, colors, texcoords, width, height, near,
-                    far, tile_logsize=5, pad_multiple=8
-                    ) -> BinnedDrawcall | None:
+
+def bin_drawcall(pos, indices, colors, texcoords, width, height, near, far,
+                 tile_logsize=5, pad_multiple=8) -> BinnedDrawcall | None:
     """Bin one drawcall.  Mirrors gfxutil.cpp:103-276 bit-for-bit.
 
     pos (V,4) f32 clip space; indices (P,3) i32; colors (V,4); texcoords (V,2).
     Returns None when no primitive survives rejection (host then skips the
     draw, draw3d/main.cpp:192-193).
+
+    Runs the native engine (geom.native), which raises if it cannot be
+    built; ``SKYBOX_NATIVE=0`` selects the numpy engine instead.
     """
+    if os.environ.get("SKYBOX_NATIVE", "1") == "0":
+        return bin_drawcall_py(pos, indices, colors, texcoords, width, height,
+                               near, far, tile_logsize, pad_multiple)
+    res = native.bin_drawcall_native(pos, indices, colors, texcoords, width,
+                                     height, near, far, tile_logsize,
+                                     pad_multiple)
+    if res is None:
+        return None
+    edges, attribs, tile_xy, tile_pids, tile_cnt = res
+    return BinnedDrawcall(
+        edges=edges, attribs=attribs, tile_xy=tile_xy, tile_pids=tile_pids,
+        tile_pid_count=tile_cnt, tile_logsize=tile_logsize,
+        num_prims=edges.shape[0])
+
+
+def bin_drawcall_py(pos, indices, colors, texcoords, width, height, near,
+                    far, tile_logsize=5, pad_multiple=8
+                    ) -> BinnedDrawcall | None:
+    """Pure-numpy binning — the oracle the native engine is tested against,
+    with the same contract as :func:`bin_drawcall`."""
     pos = np.asarray(pos, F32)
     indices = np.asarray(indices, np.int64)
     if indices.size == 0:

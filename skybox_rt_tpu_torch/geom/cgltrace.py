@@ -21,14 +21,17 @@ index list (i0,i1,i2 referencing vertex keys), and a viewport (near/far).
 
 A trace also round-trips through the JAX package's ``.npz`` layout
 (:func:`save_npz` / :func:`load_npz`); the port's committed synthetic trace
-(``data/synth_draw3d.npz``) is stored that way.
+(``data/synth_draw3d.npz``) is stored that way, and :func:`load_cached`
+keeps parsed XML archives in it.
 """
 from __future__ import annotations
 
 import base64
 import dataclasses
+import hashlib
 import os
 import xml.etree.ElementTree as ET
+import zipfile
 
 import numpy as np
 
@@ -275,3 +278,36 @@ def trace_path(name: str) -> str:
 def load_trace(path: str) -> CGLTrace:
     """Load a trace from its XML archive or its ``.npz`` form."""
     return load_npz(path) if path.endswith(".npz") else load(path)
+
+
+def _cache_key(path: str) -> str:
+    st = os.stat(path)
+    key = f"{os.path.abspath(path)}:{st.st_size}:{st.st_mtime_ns}:v1"
+    return hashlib.sha1(key.encode()).hexdigest()[:16]
+
+
+def load_cached(path: str, cache_dir: str | None = None) -> CGLTrace:
+    """Load a trace from either form :func:`load_trace` reads, keeping a
+    parsed XML archive as ``.npz`` in ``cache_dir`` (default
+    ``~/.cache/skybox_rt_tpu_torch``), keyed by the file's path, size and
+    modification time: parsing a 2 MB archive is slow.  An ``.npz`` trace
+    is already that form and is read as it is.  A cache file that cannot be
+    read is parsed and written again."""
+    if path.endswith(".npz"):
+        return load_npz(path)
+    cache_dir = cache_dir or os.path.join(
+        os.path.expanduser("~"), ".cache", "skybox_rt_tpu_torch")
+    os.makedirs(cache_dir, exist_ok=True)
+    cpath = os.path.join(cache_dir, _cache_key(path) + ".npz")
+    if os.path.exists(cpath):
+        try:
+            return load_npz(cpath)
+        except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+            pass
+    trace = load(path)
+    # written under a name of its own and moved into place: a reader in
+    # another process never sees half a file
+    tmp = f"{cpath}.{os.getpid()}.npz"
+    save_npz(trace, tmp)
+    os.replace(tmp, cpath)
+    return trace

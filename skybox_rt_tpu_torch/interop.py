@@ -1,7 +1,8 @@
 """Carry state from the JAX package into the port.
 
 The renderer's "weights" are the trace, the binned arrays, the resolved
-render state and the texel table; the ray tracer's are the scene, its BVH,
+render state and the texel table; the apps' are the bound texture units and
+the LBM lattice's shape; the ray tracer's are the scene, its BVH,
 the treelet blocks or clusters, the camera and the config; the differentiable
 pipeline's are the parameter and binning dicts.  These helpers rebuild the
 port's objects from the JAX package's by reading attributes and numpy arrays
@@ -15,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .apps import lbm
 from .core import fixed
 from .core.device import resolve_device
 from .core.state import RenderState, ShaderFlags
@@ -26,6 +28,7 @@ from .om.merger import OMState
 from .ops import cuda_rt
 from .rt import bvh as bvh_mod
 from .rt import tracer
+from .texture import units as units_mod
 from .texture.sampler import TextureState
 
 
@@ -72,10 +75,7 @@ def render_state_from_reference(obj) -> RenderState:
     DepthStencilState / BlendState and masks, TextureState, scissor) ->
     the port's."""
     om = obj.om
-    tex = obj.tex
-    if tex is not None:
-        tex = _copy_fields(TextureState, tex,
-                           mip_offsets=tuple(int(o) for o in tex.mip_offsets))
+    tex = None if obj.tex is None else texture_state_from_reference(obj.tex)
     return RenderState(
         flags=_copy_fields(ShaderFlags, obj.flags),
         om=_copy_fields(OMState, om,
@@ -83,6 +83,24 @@ def render_state_from_reference(obj) -> RenderState:
                         blend=_copy_fields(BlendState, om.blend)),
         tex=tex,
         scissor=tuple(int(v) for v in obj.scissor))
+
+
+def texture_state_from_reference(obj) -> TextureState:
+    """A JAX-package TextureState -> the port's, field by field."""
+    return _copy_fields(TextureState, obj,
+                        mip_offsets=tuple(int(o) for o in obj.mip_offsets))
+
+
+def texture_units_from_reference(obj) -> units_mod.TextureUnits:
+    """A JAX-package TextureUnits -> the port's (unbound stages stay None)."""
+    return units_mod.bind(*(None if st is None
+                            else texture_state_from_reference(st)
+                            for st in obj.states))
+
+
+def lbm_config_from_reference(obj) -> lbm.LBMConfig:
+    """A JAX-package LBMConfig -> the port's."""
+    return _copy_fields(lbm.LBMConfig, obj)
 
 
 def texels_from_reference(arr, device=None) -> torch.Tensor:

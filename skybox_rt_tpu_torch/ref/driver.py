@@ -6,9 +6,14 @@ DCR programming quirks, core/state.py) and renders it on ``device``.  The
 color and ds buffers persist across drawcalls, like the reference's
 device-resident zbuf/cbuf (main.cpp:470-490 allocate-once + clear).
 
-Modes: "immediate" (the ref.renderer oracle) and "deferred" (ops.deferred,
-whose pass 1 is the CUDA visibility kernel on a card).  Results leave as
-numpy uint32 (H, W) ARGB.
+Modes: "immediate" (the ref.renderer oracle, the default as in the JAX
+package), "deferred" (ops.deferred, whose pass 1 is the CUDA visibility
+kernel on a card) and "pallas", the JAX package's name for deferred with its
+Pallas pass 1: here the same path as "deferred", which launches the CUDA
+kernel for CUDA tensors and runs its plain version for CPU tensors.
+"pallas_interpret" (JAX: the Pallas interpreter) has no counterpart and is
+refused; the plain version runs with device="cpu".  Results leave as numpy
+uint32 (H, W) ARGB.
 """
 from __future__ import annotations
 
@@ -30,7 +35,19 @@ from . import renderer
 
 CLEAR_COLOR = np.uint32(0xFF000000)   # main.cpp:47
 CLEAR_DEPTH = np.uint32(0xFFFFFFFF)   # main.cpp:48
-MODES = ("immediate", "deferred")
+MODES = ("immediate", "deferred", "pallas")
+# modes whose draws go through ops.deferred
+DEFERRED_MODES = ("deferred", "pallas")
+
+
+def _check_mode(mode: str) -> None:
+    if mode == "pallas_interpret":
+        raise ValueError(
+            'mode "pallas_interpret" names the JAX package\'s Pallas '
+            'interpreter, which the port has not: mode="pallas" with '
+            'device="cpu" runs the kernel\'s plain version')
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
 
 
 def log2ceil(x: int) -> int:
@@ -72,7 +89,7 @@ def make_texture_binding(trace: cgltrace.CGLTrace, drawcall, states,
 def _resolve_draw(trace, dc, width, height, tile_logsize, device):
     """Bin one drawcall and resolve its state: (RenderState, texels or
     None, BinnedDrawcall), or None when no primitive survives binning."""
-    binned = binning.bin_drawcall_py(
+    binned = binning.bin_drawcall(
         dc.pos, dc.indices, dc.color, dc.texcoord,
         width, height, dc.near, dc.far, tile_logsize)
     if binned is None:
@@ -108,15 +125,18 @@ def render_trace(trace: cgltrace.CGLTrace, width: int, height: int,
     """Render a full trace on ``device`` (None: the CUDA card, see
     core.device); returns the (H, W) uint32 ARGB framebuffer.
 
+    mode: "immediate", "deferred" or "pallas" (the same path as "deferred":
+    kernel #1 for CUDA tensors, its plain version for CPU tensors); see the
+    module docstring.
+
     Blended-draw slot counts are measured on the first render of a (trace,
     size) and cached on the trace object; later frames dispatch with the
     cached K and verify the overflow counters only at frame end, where the
     framebuffer readback has already paid the device sync.
     """
-    if mode not in MODES:
-        raise ValueError(f"mode {mode!r} not in {MODES}")
+    _check_mode(mode)
     device = resolve_device(device)
-    deferred_mode = mode == "deferred"
+    deferred_mode = mode in DEFERRED_MODES
     if deferred_mode:
         cache = trace.__dict__.setdefault("_blend_k_cache", {})
         ks = cache.setdefault((width, height, tile_logsize), {})
@@ -151,6 +171,13 @@ def render_trace(trace: cgltrace.CGLTrace, width: int, height: int,
     return out
 
 
+def render_scene(name: str, width: int, height: int, **kw) -> np.ndarray:
+    """Render one of the package's traces by name (geom.cgltrace.trace_path,
+    read through load_cached); ``kw`` goes to :func:`render_trace`."""
+    trace = cgltrace.load_cached(cgltrace.trace_path(name))
+    return render_trace(trace, width, height, **kw)
+
+
 def prepare_drawcalls(trace: cgltrace.CGLTrace, width: int, height: int,
                       tile_logsize: int = C.RASTER_TILE_LOGSIZE,
                       device=None):
@@ -174,9 +201,10 @@ def prepare_drawcalls(trace: cgltrace.CGLTrace, width: int, height: int,
 
 def compile_frame(trace: cgltrace.CGLTrace, width: int, height: int,
                   tile_logsize: int = C.RASTER_TILE_LOGSIZE,
-                  mode: str = "deferred", device=None):
+                  mode: str = "immediate", device=None):
     """Prepare a whole frame once, for repeated rendering on ``device``
-    (None: the CUDA card).
+    (None: the CUDA card).  mode: as in :func:`render_trace`, "immediate"
+    by default as in the JAX package.
 
     Draws are binned once, their arrays uploaded once, and blended draws'
     slot counts measured once with one deferred frame (exact: every call
@@ -184,8 +212,7 @@ def compile_frame(trace: cgltrace.CGLTrace, width: int, height: int,
     ``(frame, arrays)``; ``frame(arrays)`` renders all draws on the device
     and returns the (H, W) int32 ARGB-pattern tensor, without syncing.
     """
-    if mode not in MODES:
-        raise ValueError(f"mode {mode!r} not in {MODES}")
+    _check_mode(mode)
     device = resolve_device(device)
     draws = prepare_drawcalls(trace, width, height, tile_logsize, device)
     arrays = tuple((texels, deferred_mod.device_arrays(b, device))
@@ -195,7 +222,7 @@ def compile_frame(trace: cgltrace.CGLTrace, width: int, height: int,
     # buffers are made once and reused by every frame
     cleared = clear_framebuffers(width, height, tile_logsize, device)
     blend_ks = [0] * len(draws)
-    if mode == "deferred":
+    if mode in DEFERRED_MODES:
         fbc, fbd = cleared
         for d, (rs, texels, b) in enumerate(draws):
             info = {}
@@ -208,7 +235,7 @@ def compile_frame(trace: cgltrace.CGLTrace, width: int, height: int,
     def frame(arrays):
         fbc, fbd = cleared
         for (rs, tls, k), (texels, dev_arrays) in zip(statics, arrays):
-            if mode == "deferred":
+            if mode in DEFERRED_MODES:
                 fbc, fbd, _ = deferred_mod.render_arrays(
                     rs, texels, dev_arrays, fbc, fbd, tls, blend_slots=k)
             else:

@@ -96,12 +96,34 @@ def test_port_draw1024_matches_golden():
         assert port_draw1024() == json.load(f)
 
 
-@pytest.mark.parametrize("mode", ["deferred", "immediate"])
+@pytest.mark.parametrize("mode", ["deferred", "immediate", "pallas"])
 def test_frame_256_bit_exact(jax_frame_256, mode):
     got = driver.render_trace(cgltrace.load_trace(TRACE), 256, 256,
                               mode=mode, device="cpu")
     assert got.dtype == np.uint32 and got.shape == (256, 256)
     np.testing.assert_array_equal(got, jax_frame_256)
+
+
+@pytest.mark.parametrize("fn", ["render_trace", "compile_frame"])
+def test_mode_defaults_match_jax(fn):
+    """A caller that passes no mode takes the same path in both packages."""
+    import inspect
+    got = inspect.signature(getattr(driver, fn)).parameters["mode"].default
+    want = inspect.signature(getattr(jax_driver, fn)).parameters[
+        "mode"].default
+    assert got == want == "immediate"
+
+
+@pytest.mark.parametrize("fn", ["render_trace", "compile_frame"])
+def test_pallas_interpret_is_refused(fn):
+    """The Pallas interpreter has no counterpart: the message points at the
+    plain version on the CPU."""
+    with pytest.raises(ValueError, match='device="cpu"'):
+        getattr(driver, fn)(cgltrace.load_trace(TRACE), 32, 32,
+                            mode="pallas_interpret", device="cpu")
+    with pytest.raises(ValueError):
+        getattr(driver, fn)(cgltrace.load_trace(TRACE), 32, 32,
+                            mode="mosaic", device="cpu")
 
 
 def test_compile_frame_bit_exact(jax_frame_256):

@@ -1,7 +1,8 @@
 """The port stands without JAX: importing every module of
-skybox_rt_tpu_torch, rendering a raster frame, a ray-traced frame (every
-engine) and the ray-traced CGLTrace frame, and taking training steps of the
-differentiable render on the CPU loads neither jax,
+skybox_rt_tpu_torch, rendering a raster frame (binned by the native engine),
+a ray-traced frame (every engine) and the ray-traced CGLTrace frame, taking
+training steps of the differentiable render and running the apps on the CPU
+loads neither jax,
 optax, orbax nor skybox_rt_tpu, and chip_smoke.py refuses to run without a
 card."""
 import importlib.util
@@ -70,6 +71,10 @@ params, static, cfg = check.train_scene(32, subdiv=1, tile_logsize=3,
 params, static = check.to_device(params, static, "cpu")
 fit = optim.fit(lambda p: check.loss_of(
     pipeline.render_deferred(p, static, cfg)[0], cfg), params, steps=3)
+from skybox_rt_tpu_torch.apps import compute, lbm, om_app
+sg = compute.sgemm_pallas(torch.ones(8, 4), torch.ones(4, 8), block=(4, 4, 4))
+lbm.run(lbm.LBMConfig(8, 8, 4), steps=1, device="cpu")
+om_app.run(8, 8, device="cpu")
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "optax", "orbax",
                                        "skybox_rt_tpu"))
@@ -81,7 +86,8 @@ print(json.dumps({"loaded": loaded, "shape": list(fb.shape),
                   "config3_shape": list(fused.shape),
                   "config3_vs_scan": float(abs(fused - bridged).max()),
                   "rt_diff_grad": float(v.grad.abs().max()),
-                  "fit_losses": fit.losses}))
+                  "fit_losses": fit.losses,
+                  "sgemm": float(sg.sum())}))
 """
 
 
@@ -106,7 +112,10 @@ def test_every_module_listed():
               "rt.tracer", "rt.bvh", "rt.intersect", "rt.wavefront",
               "ops.cuda_rt", "diff.pipeline", "diff.binning", "diff.cuda_vis",
               "diff.cuda_texgrad", "diff.optim", "diff.check",
-              "rt.raster_bridge", "rt.frame", "rt.diff"):
+              "rt.raster_bridge", "rt.frame", "rt.diff", "apps.compute",
+              "apps.cuda_sgemm", "apps.opencl", "apps.lbm", "apps.om_app",
+              "apps.tex_app", "apps.raster_app", "texture.convert",
+              "texture.units", "geom.native", "geom.validate"):
         assert f"skybox_rt_tpu_torch.{m}" in MODULES
 
 
@@ -126,6 +135,7 @@ def test_no_jax_after_import_and_render(probe):
     # three Adam steps of the differentiable render, each one downhill
     losses = probe["fit_losses"]
     assert len(losses) == 3 and losses[2] < losses[1] < losses[0]
+    assert probe["sgemm"] == 8 * 8 * 4
 
 
 _BAD_IMPORT = re.compile(
@@ -193,28 +203,29 @@ def test_ctypes_signatures_match_the_sources():
             "skybox_rt_closest_hit_flat", "skybox_diff_visibility_hard",
             "skybox_diff_accumulate_rows", "skybox_rt_closest_hit_bvh_after",
             "skybox_rt_closest_hit_streamed",
-            "skybox_rt_closest_hit_worklist"} <= set(found)
+            "skybox_rt_closest_hit_worklist", "skybox_apps_sgemm"} <= set(found)
     for name, kinds in found.items():
         assert kinds == _build._SIGNATURES[name], name
     names = {os.path.basename(s) for s in _build._sources()}
     assert names == {"raster_visibility.cu", "rt_bvh.cu", "rt_clustered.cu",
                      "rt_common.cuh", "diff_visibility.cu",
-                     "diff_accumulate.cu", "rt_streamed.cu"}
+                     "diff_accumulate.cu", "rt_streamed.cu", "apps_sgemm.cu"}
 
 
 def test_package_data_ships_every_source():
-    """An installed package builds its kernels too: every file the build
-    reads (sources and the header they include) matches a package-data
-    glob."""
+    """An installed package builds its kernels and its native binning engine
+    too: every file the two builds read (sources and the header they
+    include) matches a package-data glob."""
     import fnmatch
     import tomllib
 
     from skybox_rt_tpu_torch import _build
+    from skybox_rt_tpu_torch.geom import native
     with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
         globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
             "skybox_rt_tpu_torch"]
     pkg = os.path.dirname(skybox_rt_tpu_torch.__file__)
-    for src in _build._sources():
+    for src in _build._sources() + [native.SRC]:
         rel = os.path.relpath(src, pkg).replace(os.sep, "/")
         assert any(fnmatch.fnmatch(rel, g) for g in globs), rel
 
