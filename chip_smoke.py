@@ -91,10 +91,12 @@ exits non-zero, and only a run where every phase passed prints the final
  16. diff_accumulate_vs_plain — the row-accumulation kernel against its
                order-exact plain version, bit for bit, and two launches
                bit-identical: (N, R, C) = (3000, 256, 16) with out-of-range
-               and negative rows, and all five calls of a real 1024x1024
+               and negative rows, all five calls of a real 1024x1024
                backward pass, captured (the texel and record tables and the
-               pos, color and uv vertex tables); the largest difference from
-               a float64 sum is printed
+               pos, color and uv vertex tables), 90 % of the texel table's
+               N in one row of 4,096 (skewed), and N = 2,000,000 into
+               4,096 rows (long); the largest difference from a float64
+               sum is printed
  17. diff_step_256 — one forward and backward of render_deferred at 256x256
                in the hard, alpha and soft modes against the committed JAX
                golden (data/diff_step_256.npz): image atol 1e-4 with >= 99.9 %
@@ -118,7 +120,8 @@ exits non-zero, and only a run where every phase passed prints the final
                plain chunk reduction (of 5) at 1024x1024; the accumulation
                kernel, its plain version (one run, from phase 16) and
                ``zeros(R, C).index_add_`` (the library call; it takes only
-               the kept rows) on the texel, record, pos and uv tables;
+               the kept rows) on the texel, record, pos and uv tables and
+               the skewed and long cases;
                forward, backward and whole step at 512x512 and 1024x1024,
                Mpix/s = size^2 / step time
 
@@ -172,9 +175,11 @@ exits non-zero, and only a run where every phase passed prints the final
                clustered and the flat one, the worklist's prepass apart from
                its kernel, the three engines' frames
 
-  26. apps_sgemm_vs_plain — kernel #12 (csrc/apps_sgemm.cu) against its
-               plain version, bit for bit: 256x384x128, the ragged 200x72x136
-               with block (8, 8, 8), and two 128-row stripes of 4096^3; and
+  26. apps_sgemm_vs_plain — kernel #12 (csrc/apps_sgemm.cu, one fused
+               multiply-add a step) against its plain version (an exact fmaf
+               emulation), bit for bit: 256x384x128, the ragged 200x72x136
+               with block (8, 8, 8), 1x1x1, 130x257x129 and two 128-row
+               stripes of 4096^3; and
                against torch.matmul (float32, no TF32) within the forward
                error bound of the two float32 sums, 2 k 2^-24 (|A||B|)_ij
   27. apps_on_card — every app of apps/compute.py (the 22 dogfood cases
@@ -190,7 +195,7 @@ exits non-zero, and only a run where every phase passed prints the final
                read just after: #12 twice (the 256x384x128 and 4096^3
                products)
   28. apps_timing — CUDA events, median of 20: #12 at 4096^3, its plain
-               version (of 3) and torch.matmul; an LBM step at 120x120x150;
+               version (one call) and torch.matmul; an LBM step at 120x120x150;
                blackscholes on 4,000,000 options; host milliseconds a draw
                of the native and the numpy binning engines (median of 5) on
                synth_draw3d at 256x256 and 1024x1024
@@ -209,11 +214,12 @@ measured 0, since any difference raises), and the ray queries add
 The training path's two entries give the kernel on the 1024x1024 step's
 tensors; ``launches`` are those of the ten SGD steps.  ``diff_accumulate``'s
 ``ms`` is the texel table's launch (the widest of a step's five) and
-``step_ms`` lists the table classes; its ``library_ms`` is ``index_add_``,
-which the port never calls on a CUDA tensor.  Its ``bound_ms`` is the
-function's own (the bytes, and one add a kept value's column); the R * N
-row compares that the owner-computes algorithm spends on top are printed
-apart, as ``algorithm_ops`` and ``algorithm_ops_ms``, and enter no bound.
+``step_ms`` lists the table classes and ``stress_ms`` the skewed and long
+cases; its ``library_ms`` is ``index_add_``, which the port never calls on
+a CUDA tensor.  Its ``bound_ms`` is the function's own (the bytes, and one
+add a kept value's column); the bytes that the counting sort's scratch
+moves on top are printed apart, in phase 19 (``sort_scratch_ms``, those
+bytes over the memory rate, an estimate), and enter no bound.
 
 The next-hit-after entry gives walk 1 of the largest K-slot draw (the
 5,080-triangle shell) on all rays; ``walk_ms`` lists every walk of every such
@@ -1035,6 +1041,10 @@ DIFF_VIS_STEP_OPS = 15
 DIFF_VIS_COVERED_OPS = 15
 DIFF_SIZE = 1024        # the full-width training step
 DIFF_STEPS = 10
+ACC_STRESS_ROWS = 4096  # kernel #5's stress cases: the texel table's rows
+ACC_LONG_N = 2_000_000  # ... and the long case's values
+ACC_STEP = ("texel", "record", "vertex_pos", "vertex_uv")   # a step's tables
+ACC_STRESS = ("skewed", "long")
 
 
 def diff_phases(dev, card) -> list:
@@ -1186,6 +1196,20 @@ def diff_phases(dev, card) -> list:
     if sorted(acc_inputs) != ["record", "texel", "vertex_color",
                               "vertex_pos", "vertex_uv"]:
         raise AssertionError(f"captured {sorted(acc_inputs)}")
+    # two stress cases at the texel table's width: 90 % of the values in
+    # one row (the kernel's first design took 4.23 ms on such a table), and
+    # N past SEGMENTS_MAX * SEGMENT_MIN
+    for name, n, hot in (("skewed", acc_inputs["texel"][0].numel(), 0.9),
+                         ("long", ACC_LONG_N, 0.0)):
+        g = torch.Generator(device=dev).manual_seed(n)
+        idx = torch.randint(-4, ACC_STRESS_ROWS, (n,), generator=g,
+                            device=dev, dtype=torch.int32)
+        idx[torch.rand(n, generator=g, device=dev) < hot] = 5
+        val = torch.randn((n, 16), generator=g, device=dev)
+        acc_inputs[name] = (idx, val, ACC_STRESS_ROWS)
+        acc_cases[name] = compare_acc(name, idx, val, ACC_STRESS_ROWS)
+    if acc_cases["long"]["segments"][0] != cuda_texgrad.SEGMENTS_MAX:
+        raise AssertionError("the long case must reach SEGMENTS_MAX")
     acc_err = max(c["max_abs_err"] for c in acc_cases.values())
     phase("diff_accumulate_vs_plain", equal=True, bit_identical_twice=True,
           max_abs_err=acc_err, **acc_cases)
@@ -1330,12 +1354,14 @@ def diff_phases(dev, card) -> list:
         "kernel_ms": vis_ms, "plain_ms": vis_plain_ms, "T": T, "M": M,
         "pixel_steps": steps, "covered_steps": covered, "bound": vis_bound}
     acc_timing = {}
-    for name in ("texel", "record", "vertex_pos", "vertex_uv"):
+    for name in ACC_STEP + ACC_STRESS:
         idx, val, R = acc_inputs[name]
         N, C = val.shape
         keep = (idx >= 0) & (idx < R)
         # the library call takes no out-of-range row: it gets the kept ones
         idx64, val_kept = idx[keep].long(), val[keep]
+        S, _ = cuda_texgrad.segments(N)
+        plan = cuda_texgrad.scratch_sizes(N, R, C)
         acc_timing[name] = {
             "N": N, "R": R, "C": C,
             "kernel_ms": median_ms(
@@ -1348,10 +1374,14 @@ def diff_phases(dev, card) -> list:
             # written once, one add a kept value's column (the record
             # class's list padding, idx -1, is dropped) ...
             "bound": bound(N * (4 + 4 * C) + 4 * R * C, int(keep.sum()) * C),
-            # ... and, beside it, what this owner-computes algorithm adds:
-            # one int32 compare a (row, value) pair
-            "algorithm_ops": R * N,
-            "algorithm_ops_ms": R * N / INT32_OPS_PER_S * 1e3}
+            # ... and, beside it, what the counting sort moves on top: the
+            # S * R counts zeroed, read and written by the scan, read and
+            # advanced by place (5 times); perm written and read; the long
+            # rows' partials written and read
+            "sort_scratch_bytes": 4 * (5 * S * R + 2 * N)
+                                  + 8 * plan["parts"]["partials"]}
+        acc_timing[name]["sort_scratch_ms"] = (
+            acc_timing[name]["sort_scratch_bytes"] / HBM_BYTES_PER_S * 1e3)
     timing["accumulate_1024"] = acc_timing
     for size in (512, DIFF_SIZE):
         params, static, cfg = scene(check.train_scene, size)
@@ -1392,18 +1422,16 @@ def diff_phases(dev, card) -> list:
         "replaces": "skybox_rt_tpu/diff/pallas_texgrad.py:41",
         "launches": sgd_launches[1], "max_abs_err": acc_err,
         "ms": tex["kernel_ms"], "plain_ms": tex["plain_ms"], **tex["bound"],
-        "algorithm_ops": tex["algorithm_ops"],
-        "algorithm_ops_ms": tex["algorithm_ops_ms"],
         "library_ms": tex["library_ms"],    # zeros(R, C).index_add_(0, ...)
         "steps": DIFF_STEPS, "shape": "texel table: N, R, C = "
         f"{tex['N']}, {tex['R']}, {tex['C']}",
-        "step_ms": {n: c["kernel_ms"] for n, c in acc_timing.items()},
-        "step_bound_ms": {n: c["bound"]["bound_ms"]
-                          for n, c in acc_timing.items()},
-        "step_algorithm_ops_ms": {n: c["algorithm_ops_ms"]
-                                  for n, c in acc_timing.items()},
-        "step_library_ms": {n: c["library_ms"]
-                            for n, c in acc_timing.items()}}]
+        "step_ms": {n: acc_timing[n]["kernel_ms"] for n in ACC_STEP},
+        "step_bound_ms": {n: acc_timing[n]["bound"]["bound_ms"]
+                          for n in ACC_STEP},
+        "step_library_ms": {n: acc_timing[n]["library_ms"] for n in ACC_STEP},
+        "stress_ms": {n: acc_timing[n]["kernel_ms"] for n in ACC_STRESS},
+        "stress_library_ms": {n: acc_timing[n]["library_ms"]
+                              for n in ACC_STRESS}}]
 
 
 C3_GOLDEN_SIZE = 128    # the size of the committed JAX golden of config 3
@@ -2023,6 +2051,8 @@ def apps_phases(dev, card) -> list:
     checks, err = [], 0
     for (m, k, n), block in (((256, 384, 128), (128, 128, 128)),
                              ((200, 72, 136), (8, 8, 8)),
+                             ((1, 1, 1), (1, 1, 1)),
+                             ((130, 257, 129), (1, 1, 1)),
                              ((APPS_GEMM,) * 3, (128, 128, 128))):
         a, b = gemm_inputs(m, k, n, seed=m + k + n)
         got = compute.sgemm_pallas(a, b, block=block)
@@ -2295,8 +2325,10 @@ def apps_phases(dev, card) -> list:
     n3 = APPS_GEMM
     k_ms = median_ms(lambda: cuda_sgemm.sgemm(ga, gb))
     lib_ms = median_ms(lambda: torch.matmul(ga, gb))
-    p_ms = median_ms(lambda: cuda_sgemm.sgemm_reference(ga, gb), reps=3,
-                     warmup=1)
+    # the plain version emulates fmaf in float64, about 15 operations on
+    # (4096, 4096) tensors a step: one call, no warm-up (phase 26 ran it)
+    p_ms = median_ms(lambda: cuda_sgemm.sgemm_reference(ga, gb), reps=1,
+                     warmup=0)
     gemm_bound = bound(nbytes(ga, gb) + 4 * n3 * n3, 2 * n3 ** 3)
     timing = {"sgemm_4096": {
         "kernel_ms": k_ms, "plain_ms": p_ms, "matmul_ms": lib_ms,

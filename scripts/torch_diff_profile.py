@@ -14,8 +14,9 @@ line each for:
   * ``profile``  — one step under torch.profiler (CPU + CUDA activities):
                    device-busy milliseconds (sum of device kernel time), its
                    share of the step's host-clock time, the two hand-written
-                   kernels' part of it (diff_visibility, and the two passes of
-                   diff_accumulate over its five launches), the count of
+                   kernels' part of it (diff_visibility, and the passes of
+                   diff_accumulate over its five calls, also pass by pass
+                   with their launch counts), the count of
                    device kernels, and the ten largest by summed device time
                    (a first profiled step is thrown away);
   * ``stages``   — CUDA-event milliseconds of the step's stages driven one by
@@ -35,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import time
 
@@ -122,13 +124,23 @@ def main(argv) -> int:
             rows.append((e.key, dev_us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    ours = {name: sum(ms for k, ms, _ in rows if name in k)
-            for name in ("diff_visibility_kernel", "accumulate_partial_kernel",
-                         "accumulate_reduce_kernel")}
+    # the accumulation kernel's passes live in the namespace diff_accumulate
+    # of csrc/diff_accumulate.cu: diff_accumulate::count_kernel(...), ...
+    ours = {name: sum(ms for k, ms, _ in rows if part in k)
+            for name, part in (("diff_visibility", "diff_visibility_kernel"),
+                               ("diff_accumulate", "diff_accumulate::"))}
+    passes = {}
+    for k, ms, n in rows:
+        m = re.search(r"diff_accumulate::(\w+)", k)
+        if m:
+            ms0, n0 = passes.get(m.group(1), (0.0, 0))
+            passes[m.group(1)] = (ms0 + ms, n0 + n)
     print(json.dumps({"profile": {
         "device_time_seen": bool(rows), "step_host_ms_under_profiler": wall,
         "device_busy_ms": busy, "device_busy_share": busy / wall,
         "our_kernels_ms": ours, "other_kernels_ms": busy - sum(ours.values()),
+        "diff_accumulate_passes": {k: {"ms": ms, "count": n}
+                                   for k, (ms, n) in sorted(passes.items())},
         "device_kernels": int(sum(r[2] for r in rows)),
         "top": [{"name": k[:60], "ms": ms, "count": n}
                 for k, ms, n in rows[:10]]}, "card": card}), flush=True)

@@ -9,8 +9,10 @@ flags, so an edited source rebuilds.  Flags keep IEEE float32 division and no
 FMA contraction, which the exact-int raster path (csrc/raster_visibility.cu),
 the ray queries' agreement with their plain versions (csrc/rt_bvh.cu,
 csrc/rt_clustered.cu, csrc/rt_streamed.cu), the float visibility's
-(csrc/diff_visibility.cu) and the matrix product's pinned sum order
-(csrc/apps_sgemm.cu) need; fast math is never used.  The host binning
+(csrc/diff_visibility.cu), the row accumulation's pinned sum order
+(csrc/diff_accumulate.cu) and the matrix product's pinned arithmetic
+(csrc/apps_sgemm.cu, whose fused multiply-adds are explicit __fmaf_rn)
+need; fast math is never used.  The host binning
 engine (csrc/binning.cpp) is built by g++, not here: geom/native.py.
 """
 from __future__ import annotations
@@ -65,8 +67,9 @@ _SIGNATURES = {
                                       + [_P] * 5,
     # edges z tile_pids origins out, T M tile_logsize depth_test, the stream
     "skybox_diff_visibility_hard": [_P] * 5 + [_I] * 4 + [_P],
-    # idx val partial out, N R C S L, the stream
-    "skybox_diff_accumulate_rows": [_P] * 4 + [_I] * 5 + [_P],
+    # idx val scratch out, N R C S L max_long, the scratch's words, the
+    # stream
+    "skybox_diff_accumulate_rows": [_P] * 4 + [_I] * 7 + [_P],
     # a b c, m n k, the stream
     "skybox_apps_sgemm": [_P] * 3 + [_I] * 3 + [_P],
 }

@@ -52,7 +52,7 @@ def sgemm_pallas(a, b, block=(128, 128, 128)):
     """Blocked float32 matmul; block=(bm, bn, bk) must divide the shapes
     (ValueError otherwise), as the JAX entry asserts.  The kernel's own
     tiles do not depend on it, and neither does the result: every element
-    sums over k in ascending order (apps.cuda_sgemm)."""
+    is one fused multiply-add a k, in ascending k (apps.cuda_sgemm)."""
     m, k = a.shape
     n = b.shape[1]
     bm, bn, bk = block

@@ -9,10 +9,11 @@ _sgemm_kernel`` (launched by ``sgemm_pallas``).  The kernel,
   * a CUDA tensor launches the kernel on the current stream, or raises;
   * a CPU tensor runs :func:`sgemm_reference`.
 
-Both sum every element of C over k in ascending order, one float32 product
-and one float32 add at a time, each rounded on its own, so they agree bit for
-bit.  Against ``torch.matmul`` or the JAX package (whose blocks are summed by
-a dot of their own) they agree to a float tolerance only.
+Both sum every element of C over k in ascending order, one fused
+multiply-add at a time, ``acc = fmaf(a[i, k], b[k, j], acc)`` from +0 (the
+exact ``a * b + acc`` rounded once to float32), so they agree bit for bit.
+Against ``torch.matmul`` or the JAX package (whose blocks are summed by a
+dot of their own) they agree to a float tolerance only.
 """
 from __future__ import annotations
 
@@ -30,15 +31,41 @@ def reset_launch_count() -> None:
     launch_count = 0
 
 
+def fma_reference(a: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor) -> torch.Tensor:
+    """float32 ``fmaf(a, b, c)`` in plain torch on any device (broadcast):
+    the exact ``a * b + c`` rounded once to nearest, ties to even, for
+    finite results.
+
+    ``p = a * b`` is exact in float64 (48 significant bits); ``s = p + c``
+    rounds, and TwoSum gives its exact error ``e``.  ``s`` rounded to float32
+    is the answer unless ``s`` lies exactly halfway between two float32
+    values and ``e != 0``: then the exact sum is off the midpoint, on
+    ``e``'s side, and the answer is the neighbour on that side."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    r = s.float()
+    r64 = r.double()
+    inf = torch.full_like(r, float("inf"))
+    other = torch.nextafter(r, torch.where(s > r64, inf, -inf))
+    o64 = other.double()
+    tie = (r64 != s) & (r64 + o64 == 2 * s) & (e != 0)
+    toward_other = (e > 0) == (o64 > s)
+    return torch.where(tie & toward_other, other, r)
+
+
 def sgemm_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain torch C = A . B on any device, in the kernel's sum order:
-    ``acc = acc + a[:, k] * b[k, :]`` for ascending k, the product and the
-    add two separate roundings."""
+    """Plain torch C = A . B on any device, in the kernel's arithmetic:
+    ``acc = fmaf(a[:, k], b[k, :], acc)`` for ascending k from +0
+    (:func:`fma_reference`, about 15 float64 operations a step)."""
     m, k = a.shape
     n = b.shape[1]
     acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
     for kk in range(k):
-        acc = acc + a[:, kk:kk + 1] * b[kk:kk + 1, :]
+        acc = fma_reference(a[:, kk:kk + 1], b[kk:kk + 1, :], acc)
     return acc
 
 

@@ -21,25 +21,31 @@ The sum's order is pinned, a function of (N, idx) alone:
   * ``out[r] = 0 + partial[0, r] + partial[1, r] + ...`` in ascending s.
 
 Every addition is one float32 addition.  The kernel keeps the order by
-construction (one thread owns a row of a segment, walks the segment in
-ascending n and keeps the row's sum in registers; no floating-point
-atomics).  The plain version is ORDER-EXACT on any device, CUDA tensors
-included, so kernel and plain version compare bit for bit on the card as the
-CPU tests do here: it ranks every value within its (segment, row) group with
-a stable integer sort, then adds rank 0 of every group, rank 1, ... with an
-indexed write in which no row occurs twice, so no atomic and no library
-scatter-add decides an order.  It is slow (one pass a rank) and is never the
-training path's.
+construction: a stable counting sort by (row, segment) lists each row's
+values in ascending n, and one warp a row walks its list, keeps the
+segment's partial and the row's sum in registers and adds the partial where
+the segment changes (a row longer than ``LONG_ROW`` is summed group by group
+into a table of partials, then the partials in ascending s); no
+floating-point atomics.  The wrapper allocates the sort's scratch,
+:func:`scratch_sizes`.  The plain version is ORDER-EXACT on any device, CUDA
+tensors included, so kernel and plain version compare bit for bit on the
+card as the CPU tests do here: it ranks every value within its (segment,
+row) group with a stable integer sort, then adds rank 0 of every group, rank
+1, ... with an indexed write in which no row occurs twice, so no atomic and
+no library scatter-add decides an order.  It is slow (one pass a rank) and
+is never the training path's.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 #: shortest segment and largest number of segments of the pinned order
 SEGMENT_MIN = 1024
 SEGMENTS_MAX = 256
+#: keys a block of the kernel's scan takes at most, and the length above
+#: which a row is summed group by group (as csrc/diff_accumulate.cu has them)
+SCAN_KEYS = 2048
+LONG_ROW = 1024
 
 # Calls of accumulate_rows that launched the kernel since the last reset.
 launch_count = 0
@@ -56,6 +62,28 @@ def segments(n: int) -> tuple[int, int]:
     documented order."""
     s = max(1, min(-(-n // SEGMENT_MIN), SEGMENTS_MAX))
     return s, max(1, -(-n // s))
+
+
+def scratch_sizes(n: int, num_rows: int, cols: int) -> dict:
+    """The kernel's scratch for n values into a (num_rows, cols) table: one
+    buffer of 32-bit words, its parts in the order the kernel lays them out.
+    ``status`` (the scan's look-back words, two 32-bit words for each chunk
+    of ``rows`` whole rows), ``counts`` (one a (row, segment) group; the scan
+    turns them into offsets), ``ticket`` and ``nlong`` (the chunks started,
+    the long rows found), ``rowslot`` (a long row's slot, or -1),
+    ``longrows`` (one a slot), ``perm`` (the sorted list; the kept values
+    fill its first entries) and ``partials`` (float: slot, segment,
+    column).  The first four parts start at 0.  A long row holds more than
+    LONG_ROW kept values, so at most n // (LONG_ROW + 1) rows are long."""
+    S, _ = segments(n)
+    rows = max(1, SCAN_KEYS // S)
+    max_long = min(num_rows, n // (LONG_ROW + 1))
+    parts = {"status": 2 * -(-num_rows // rows), "counts": S * num_rows,
+             "ticket": 1, "nlong": 1, "rowslot": num_rows,
+             "longrows": max_long, "perm": n,
+             "partials": max_long * S * cols}
+    return {"parts": parts, "words": sum(parts.values()), "rows": rows,
+            "max_long": max_long}
 
 
 def accumulate_rows_reference(idx, val, num_rows: int):
@@ -105,21 +133,27 @@ def accumulate_rows(idx, val, num_rows: int):
             torch.int32, torch.int64):
         raise ValueError(f"idx must be {N} int32 or int64 values on {dev}, "
                          f"got {tuple(idx.shape)} {idx.dtype} on {idx.device}")
-    if num_rows <= 0 or C <= 0 or num_rows * C >= 2 ** 31:
-        raise ValueError(f"accumulate_rows: table ({num_rows}, {C})")
+    S, L = segments(N)
+    if num_rows <= 0 or C <= 0 or num_rows * C >= 2 ** 31 \
+            or S * num_rows >= 2 ** 31 or N >= 2 ** 31 - 1024:
+        raise ValueError(f"accumulate_rows: {N} values into a table "
+                         f"({num_rows}, {C})")
     idx = idx.detach().reshape(-1).to(torch.int32).contiguous()
     val = val.detach().contiguous()
-    S, L = segments(N)
-    partial = torch.empty((S, num_rows, C), dtype=torch.float32, device=dev)
+    plan = scratch_sizes(N, num_rows, C)
+    if plan["words"] >= 2 ** 31:
+        raise ValueError(f"accumulate_rows: {N} values into a table "
+                         f"({num_rows}, {C}) need {plan['words']} words of "
+                         "scratch, more than an int32 counts")
+    scratch = torch.empty(plan["words"], dtype=torch.int32, device=dev)
     out = torch.empty((num_rows, C), dtype=torch.float32, device=dev)
 
     from .. import _build
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.skybox_diff_accumulate_rows(
-        ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(val.data_ptr()),
-        ctypes.c_void_p(partial.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        N, num_rows, C, S, L, ctypes.c_void_p(stream))
+        idx.data_ptr(), val.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        N, num_rows, C, S, L, plan["max_long"], plan["words"], stream)
     if rc != 0:
         raise RuntimeError(f"diff_accumulate kernel launch failed: CUDA "
                            f"error {rc}")

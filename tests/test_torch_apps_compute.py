@@ -9,12 +9,17 @@ multiply-adds and eager torch does not.
 
 ``sgemm_pallas`` (kernel #12): on the CPU the port runs the kernel's plain
 version, held to the JAX Pallas kernel in interpret mode (as its own test
-runs it) at rtol 1e-5, atol 1e-3, and bit for bit to a float32 numpy loop
-over ascending k.  The CUDA kernel against the plain version runs only on a
+runs it) at rtol 1e-5, atol 1e-3, and bit for bit to a numpy loop of fused
+multiply-adds over ascending k.  The plain version's fmaf emulation is held
+bit for bit to the exactly rounded ``a * b + c`` (``fractions.Fraction``,
+rounded to float32 by hand) on random triples, ties, cancellations and
+subnormal results.  The CUDA kernel against the plain version runs only on a
 card (marker ``cuda``):
 python -m pytest --noconftest -m cuda tests/test_torch_apps_compute.py
 """
+import math
 import zlib
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -180,18 +185,131 @@ def test_sgemm_pallas_matches_jax():
     np.testing.assert_allclose(got, a @ b, rtol=1e-5, atol=1e-3)
 
 
+def _fma_np(a, b, c):
+    """float32 fmaf in numpy, built as the plain version is: the float64
+    product is exact, TwoSum gives the error of the float64 sum, and a sum
+    exactly halfway between two float32 values goes to the neighbour on the
+    error's side."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = np.asarray(c, np.float64)
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    r = s.astype(np.float32)
+    other = np.nextafter(r, np.where(s > r, np.float32(np.inf),
+                                     np.float32(-np.inf)))
+    tie = (r != s) & (r.astype(np.float64) + other == 2 * s) & (e != 0)
+    return np.where(tie & ((e > 0) == (other > s)), other, r)
+
+
 def _ascending_k(a, b):
     acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
     for kk in range(a.shape[1]):
-        acc = acc + a[:, kk:kk + 1] * b[kk:kk + 1, :]
+        acc = _fma_np(a[:, kk:kk + 1], b[kk:kk + 1, :], acc)
     return acc
+
+
+def _round_f32(v: Fraction, zero_sign: float) -> np.float32:
+    """The float32 nearest to v, ties to even (finite range); an exact zero
+    takes zero_sign's sign."""
+    if v == 0:
+        return np.float32(math.copysign(0.0, zero_sign))
+    mag = abs(v)
+    e = mag.numerator.bit_length() - mag.denominator.bit_length()
+    if Fraction(2) ** e > mag:
+        e -= 1
+    elif Fraction(2) ** (e + 1) <= mag:
+        e += 1
+    q = Fraction(2) ** max(e - 23, -149)         # the spacing at |v|
+    units = mag / q
+    whole = units.numerator // units.denominator
+    rest = units - whole
+    if rest > Fraction(1, 2) or (rest == Fraction(1, 2) and whole % 2):
+        whole += 1
+    out = np.float32(float(whole * q))
+    return -out if v < 0 else out
+
+
+def _fma_exact(a, b, c):
+    """fmaf by exact rational arithmetic: a * b + c rounded once."""
+    out = np.empty(a.shape, np.float32)
+    for i, (x, y, z) in enumerate(zip(a.tolist(), b.tolist(), c.tolist())):
+        prod = Fraction(x) * Fraction(y)
+        # an exact zero is -0 only when the product and c are both -0
+        neg_zero = prod == 0 and math.copysign(1.0, x * y) < 0 \
+            and z == 0 and math.copysign(1.0, z) < 0
+        out[i] = _round_f32(prod + Fraction(z), -1.0 if neg_zero else 1.0)
+    return out
+
+
+def _fma_triples(kind, count=1500, seed=0):
+    """float32 (a, b, c): random, or built so that a * b lies exactly
+    halfway between two float32 values with a tiny c of either sign, or so
+    that c cancels a * b, or with subnormal results."""
+    r = rng(seed + len(kind))
+    if kind == "random":
+        a, b, c = (r.standard_normal(count).astype(np.float32)
+                   * np.float32(2.0) ** r.integers(-20, 20, count)
+                   for _ in range(3))
+        return a.astype(np.float32), b.astype(np.float32), \
+            c.astype(np.float32)
+    # odd 13-bit significands whose product has 25 significant bits: the
+    # product's last bit is half a float32 unit, a midpoint
+    p = r.integers(2 ** 12, 2 ** 13, 8 * count) | 1
+    q = r.integers(2 ** 12, 2 ** 13, 8 * count) | 1
+    keep = (p * q < 2 ** 25)
+    p, q = p[keep][:count], q[keep][:count]
+    sign = np.where(r.random(count) < 0.5, -1.0, 1.0)
+    if kind == "subnormal":
+        ea, eb = -75 - r.integers(0, 10, count), -75 - r.integers(0, 10, count)
+    else:
+        ea, eb = r.integers(-30, 10, count) - 12, r.integers(-30, 10, count) - 12
+    a = (sign * p * np.float64(2.0) ** ea).astype(np.float32)
+    b = (q * np.float64(2.0) ** eb).astype(np.float32)
+    prod = a.astype(np.float64) * b.astype(np.float64)
+    if kind in ("tie_up", "tie_down"):
+        # below half a float64 unit of the product: a float64 sum rounds
+        # back onto the midpoint; tie_up pushes |a * b + c| above it
+        tiny = prod * np.float64(2.0) ** -60
+        c = tiny if kind == "tie_up" else -tiny
+    elif kind == "cancel":
+        c = -prod * (1 + np.float64(2.0) ** -30 * r.integers(-3, 4, count))
+    else:                                       # subnormal
+        c = np.where(r.random(count) < 0.5, 0.0,
+                     r.standard_normal(count) * np.float64(2.0) ** -149 * 8)
+    return a, b, c.astype(np.float32)
+
+
+FMA_KINDS = ["random", "tie_up", "tie_down", "cancel", "subnormal"]
+
+
+@pytest.mark.parametrize("impl", ["torch", "numpy"])
+@pytest.mark.parametrize("kind", FMA_KINDS)
+def test_fma_emulation_is_exactly_rounded(kind, impl):
+    """The plain version's fmaf (and the tests' numpy twin) equal a * b + c
+    rounded once, exactly, bit for bit; on the ties a float64 a * b + c
+    rounded to float32 does not."""
+    a, b, c = _fma_triples(kind)
+    want = _fma_exact(a, b, c)
+    if impl == "torch":
+        got = cuda_sgemm.fma_reference(t(a), t(b), t(c)).numpy()
+    else:
+        got = _fma_np(a, b, c)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    naive = (a.astype(np.float64) * b + c).astype(np.float32)
+    if kind.startswith("tie"):
+        assert (naive.view(np.int32) != want.view(np.int32)).sum() > 0
+    if kind == "subnormal":
+        assert ((want != 0) & (np.abs(want) < np.finfo(np.float32).tiny)).any()
 
 
 @pytest.mark.parametrize("m,k,n,block", [(256, 384, 128, (128, 128, 128)),
                                          (200, 72, 136, (8, 8, 8))])
 def test_sgemm_twin_is_the_ascending_k_loop(m, k, n, block):
-    """The plain version is bit-equal to float32 numpy over ascending k,
-    whatever the block (a ragged shape: 200 x 72 x 136, block 8)."""
+    """The plain version is bit-equal to a numpy loop of float32 fused
+    multiply-adds over ascending k, whatever the block (a ragged shape:
+    200 x 72 x 136, block 8)."""
     a, b = _sgemm_inputs(m, k, n, seed=m + k)
     got = compute.sgemm_pallas(t(a), t(b), block=block).numpy()
     np.testing.assert_array_equal(got, _ascending_k(a, b))

@@ -11,8 +11,11 @@ in the documented order (segments of ascending n, then the segments in
 order).  The quad sampler's and ``gather_tile_rows``' hand-written backward
 passes against autograd of the same math: rtol 1e-5 / atol 1e-6.
 
-The CUDA kernel against the plain version runs only on a card (marker
-``cuda``):  python -m pytest --noconftest -m cuda tests/test_torch_diff_texgrad.py
+The kernel's scratch, which the wrapper sizes in Python
+(``cuda_texgrad.scratch_sizes``), is checked against what the data needs at
+N = 0, one table row, all values dropped, all values in one row and N past
+SEGMENTS_MAX * SEGMENT_MIN.  The CUDA kernel against the plain version runs
+only on a card (marker ``cuda``), with a skewed and a long case besides:  python -m pytest --noconftest -m cuda tests/test_torch_diff_texgrad.py
 """
 import numpy as np
 import pytest
@@ -215,12 +218,78 @@ def test_gather_rows_backward_matches_autograd_and_drops_padding():
                                atol=1e-6)
 
 
+def _scratch_case(name):
+    """(idx, R, C) of the scratch-sizing cases."""
+    r = np.random.default_rng(11)
+    long_n = cuda_texgrad.SEGMENTS_MAX * cuda_texgrad.SEGMENT_MIN + 4321
+    return {
+        "empty": (np.zeros(0, np.int32), 4, 3),
+        "one_table_row": (r.integers(0, 1, 700), 1, 5),
+        "all_dropped": (r.integers(-9, 0, 3000), 64, 3),
+        "one_row": (np.full(5000, 7), 64, 2),
+        "long": (r.integers(-5, 4096, long_n), 4096, 16),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["empty", "one_table_row", "all_dropped",
+                                  "one_row", "long"])
+def test_scratch_sizes_cover_the_data(name):
+    idx, R, C = _scratch_case(name)
+    idx = idx.astype(np.int64)
+    N = idx.size
+    S, L = cuda_texgrad.segments(N)
+    plan = cuda_texgrad.scratch_sizes(N, R, C)
+    parts = plan["parts"]
+    assert list(parts) == ["status", "counts", "ticket", "nlong", "rowslot",
+                           "longrows", "perm", "partials"]
+    # a scan chunk is whole rows, at most SCAN_KEYS keys; two words a chunk
+    rows = plan["rows"]
+    assert rows * S <= cuda_texgrad.SCAN_KEYS or rows == 1
+    assert parts["status"] == 2 * -(-R // rows)
+    assert parts["counts"] == S * R and parts["ticket"] == parts["nlong"] == 1
+    assert parts["rowslot"] == R and parts["perm"] == N
+    assert parts["longrows"] == plan["max_long"]
+    assert parts["partials"] == plan["max_long"] * S * C
+    assert plan["words"] == sum(parts.values())
+    keep = (idx >= 0) & (idx < R)
+    n = np.arange(N)
+    # every kept value's (row, segment) group has a count, its n a slot
+    if keep.any():
+        assert int((idx[keep] * S + n[keep] // L).max()) < parts["counts"]
+    assert int(keep.sum()) <= parts["perm"]
+    # the rows the kernel sums group by group fit the slots
+    rows = np.bincount(idx[keep], minlength=R)
+    long_rows = int((rows > cuda_texgrad.LONG_ROW).sum())
+    assert long_rows <= plan["max_long"] <= R
+    expect = {"empty": (0, 0), "one_table_row": (0, 0),
+              "all_dropped": (0, 2), "one_row": (1, 4), "long": (0, 259)}
+    assert (long_rows, plan["max_long"]) == expect[name]
+    if name == "long":
+        assert S == cuda_texgrad.SEGMENTS_MAX and S * L >= N > S * 1024
+
+
+def _card_cases():
+    """(name, idx, val, R) on the card: the shapes above, then 90 % of the
+    values in one row (the case that took 4.23 ms in the kernel's first
+    design), and N = 2,000,000 into 4,096 rows."""
+    for name in sorted(SHAPES):
+        idx, val, R = _inputs(name, spread=True)
+        yield name, idx, val, R, True
+    r = np.random.default_rng(9)
+    n = 40000
+    idx = np.where(r.random(n) < 0.9, 3, r.integers(-4, 256, n))
+    yield "skewed", idx.astype(np.int32), \
+        r.normal(size=(n, 16)).astype(np.float32), 256, True
+    n = 2_000_000
+    yield "long", r.integers(-4, 4096, n).astype(np.int32), \
+        r.normal(size=(n, 16)).astype(np.float32), 4096, False
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU build")
-    for name in sorted(SHAPES):
-        idx, val, R = _inputs(name, spread=True)
+    for name, idx, val, R, loop in _card_cases():
         idx, val = torch.from_numpy(idx).cuda(), torch.from_numpy(val).cuda()
         cuda_texgrad.reset_launch_count()
         got = cuda_texgrad.accumulate_rows(idx, val, R)
@@ -230,6 +299,7 @@ def test_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         assert torch.equal(got, again), name
         assert torch.equal(got, want), name
-        np.testing.assert_array_equal(
-            got.cpu().numpy(), _documented_order(idx.cpu().numpy(),
-                                                 val.cpu().numpy(), R))
+        if loop:        # the per-value loop takes minutes at N = 2,000,000
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), _documented_order(
+                    idx.cpu().numpy(), val.cpu().numpy(), R))
