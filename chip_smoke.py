@@ -30,15 +30,17 @@ exits non-zero, and only a run where every phase passed prints the final
   6. timing  — CUDA events, median of 20 after warm-up: kernel vs plain
                pass 1 at 256x256 and 1024x1024, and the whole 256x256 frame
   7. rt_kernel_vs_plain — the closest-hit and any-hit BVH kernels against
-               their plain torch versions: the small check scenes whole,
-               then the 184,832-triangle sphere field on 65,536 rays of
-               each of the six launches of the real 1024x1024 frame
-               (primary, bounce 1, bounce 2, each with its shadow launch;
-               bounce launches hold parked rays), captured from the port's
-               trace_rays, and on the whole primary and primary-shadow
-               launches.  prim, miss mask and occlusion must be equal;
-               t, u, v may differ by rtol 1e-6 at most (bit equality is
-               expected; the count of rays that are not is printed)
+               their plain torch versions, bit for bit: the small check
+               scenes whole (the closest hit at leaf sizes 4, 8, 16 and
+               32), then the 184,832-triangle sphere field at the shipped
+               leaf size on 65,536 rays of each of the six launches of the
+               real 1024x1024 frame (primary, bounce 1, bounce 2, each with
+               its shadow launch; bounce launches hold parked rays),
+               captured from the port's trace_rays, and on the whole
+               primary and primary-shadow launches.  Tests a ray of each
+               launch: the closest hit's at the leaves and
+               ``block_tri_tests_per_ray``, had every entered block been
+               tested whole
   8. rt_frame_256 — make_frame_fn at 256x256, 2 bounces, shadows, on the
                default device against the committed JAX golden
                (data/rt_northstar_256.npz, rendered from the same rays):
@@ -48,9 +50,11 @@ exits non-zero, and only a run where every phase passed prints the final
                sample, 3 + 3 launches (the counts are set to 0 just before
                and read just after)
  10. rt_timing — CUDA events, median of 20: each of the six launches'
-               kernels alone, the plain versions on the samples, the whole
-               1024x1024 frame; host seconds of the BVH build and the block
-               preparation (printed, not judged)
+               kernels alone (around the call, and as a CUDA graph's replay:
+               ``graph_ms``, without the host's work around the launch), the
+               plain versions on the samples, the tests a ray of phase 7,
+               the whole 1024x1024 frame; host seconds of the BVH build and
+               the block preparation (printed, not judged)
 
   11. rt_clustered_vs_plain — the clustered closest-hit, clustered any-hit
                and flat closest-hit kernels against their plain torch
@@ -127,13 +131,18 @@ exits non-zero, and only a run where every phase passed prints the final
 
   20. rt_after_vs_plain — the next-hit-after kernel against its plain torch
                version, bit for bit (``rays_differ`` must be 0): the check
-               soups whole (an exact duplicate triangle, a coplanar grid whose
-               rays meet up to eight triangles at exactly t = 1, parked rays, a
-               per-ray t_max), every walk fed from the one before; then every
-               walk of every K-slot draw of the real 1024x1024 config-3 frame
-               on a 65,536-ray sample, and walk 1 and the last walk on all
-               1,048,576 rays; walk 1 from (-inf, -1) equal to the closest-hit
-               kernel on the same blocks
+               soups whole at leaf sizes 4, 8, 16 and 32 (an exact duplicate
+               triangle, a coplanar grid whose rays meet up to eight
+               triangles at exactly t = 1, parked rays, a per-ray t_max),
+               every walk fed from the one before; then every walk of every
+               K-slot draw of the real 1024x1024 config-3 frame on a
+               65,536-ray sample, the walks going on past each ray's last
+               hit until every ray of the sample has ended, and one more
+               (rays with a +inf carry exit at once: the share of them a
+               walk is printed); every walk of the frame on all 1,048,576
+               rays, whose counted tests give each walk's bound; walk 1
+               from (-inf, -1) equal to the closest-hit kernel on the same
+               blocks
   21. rt_config3_128 — rt.frame.render_trace_rt_fused on the default device,
                data/synth_config3.npz at 128x128, against the committed JAX
                golden (data/synth_config3_128.npz: color, zbuf, the plan's
@@ -152,7 +161,8 @@ exits non-zero, and only a run where every phase passed prints the final
                draw fails it; the counts are set to 0 just before it and read
                just after, the overflow tensor read once after that (all 0);
                finite, every value in [0, 1], the 8x8 cell means near the
-               golden's pixels; a second make_frame_fn returns the cached plan
+               golden's pixels; a second make_frame_fn returns the cached
+               plan; the leaves of each draw's blocks are printed
   23. rt_diff — rt.diff.render_lambert (per-ray-stack BVH) and
                render_lambert_soft forward and backward on the card, 16,384
                rays on a 1,280-triangle scene: finite, image within 2e-5 and
@@ -169,7 +179,9 @@ exits non-zero, and only a run where every phase passed prints the final
                inside the bound as the occlusion query), image equal to the
                clustered frame's (max |diff| 0)
   25. rt_config3_timing — CUDA events, median of 20: every walk of every K-slot
-               draw, the closest-hit kernel on the ``winner`` draws, one scan
+               draw (beside its share of ended rays, its tests a ray and its
+               bound) and the closest-hit kernel on the ``winner`` draws,
+               each around the call and as a CUDA graph's replay; one scan
                draw, the whole frame at 512x512 and 1024x1024; the streamed and
                worklist kernels on the small scene's primary launch beside the
                clustered and the flat one, the worklist's prepass apart from
@@ -204,10 +216,12 @@ The ``kernels`` line gives each kernel's time beside its bound, both terms
 of it: ``bound_bytes_ms`` (inputs read once, outputs written once; holds
 for any algorithm) and ``bound_ops_ms`` (the operations this algorithm did
 on this run's data; for the ray queries, the tests made at the shipped
-block size or cluster table).  The ray queries' ``ms`` and ``bound_ms`` are
-those of the primary launch (the any-hit kernels': the primary shadow
-launch); ``launch_ms``, ``frame_ms`` and ``frame_bound_ms`` cover the three
-launches of a frame.  ``max_abs_err`` is the largest |kernel - plain| over
+block size, leaf size or cluster table).  The ray queries' ``ms`` and
+``bound_ms`` are those of the primary launch (the any-hit kernels': the
+primary shadow launch); ``launch_ms``, ``frame_ms`` and ``frame_bound_ms``
+cover the three launches of a frame; ``graph_ms`` and ``frame_graph_ms``
+time the BVH-block launches as CUDA graph replays, without the host's work
+around the call.  ``max_abs_err`` is the largest |kernel - plain| over
 every output of the comparison run (measured; a run that prints the line
 measured 0, since any difference raises), and the ray queries add
 ``rays_differ`` or ``rays_not_bit_equal``, the count of rays behind it.
@@ -223,7 +237,9 @@ bytes over the memory rate, an estimate), and enter no bound.
 
 The next-hit-after entry gives walk 1 of the largest K-slot draw (the
 5,080-triangle shell) on all rays; ``walk_ms`` lists every walk of every such
-draw, ``frame_ms`` their sum, ``launches`` the frame's count.  The streamed and
+draw, ``frame_ms`` their sum, ``frame_bound_ms`` the sum of their bounds,
+``walk_graph_ms`` and ``frame_graph_ms`` the same as graph replays,
+``launches`` the frame's count.  The streamed and
 worklist entries give the small scene's primary launch; the worklist's
 ``prepass_ms`` is its plain-torch prepass, which the bound leaves out.
 
@@ -276,6 +292,11 @@ RASTER_COVERED_INT_OPS = 31
 # slab test (6 subtracts, 6 multiplies, 12 min/max, 1 compare)
 MT_OPS = 53
 SLAB_OPS = 25
+# the leaf sizes (rt.tracer.BVH_LEAF_TRIS) the closest-hit and next-hit-after
+# kernels are held to their plain versions at on the check scenes
+LEAF_SWEEP = (4, 8, 16, 32)
+# most walks of a next-hit-after enumeration run past the end of its lists
+MAX_WALKS = 64
 RT_SAMPLE = 65536
 RT_SIZE = 1024         # the full-width frame
 
@@ -310,6 +331,19 @@ def median_ms(fn, reps=REPS, warmup=WARMUP) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, reps=REPS) -> float:
+    """Median over `reps` of one replay of fn captured in a CUDA graph,
+    timed with CUDA events: the device time of fn's launches without the
+    host's work around them (the wrapper's checks, allocations and ctypes
+    call, about 0.1 ms, which sets the `median_ms` of a short kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return median_ms(graph.replay, reps)
+
+
 def max_abs_err(got, want) -> int:
     """Largest |kernel - plain| over all outputs (u32 words compared as
     their 32-bit patterns); raises unless the outputs are bit-equal."""
@@ -339,6 +373,30 @@ def bound(bytes_moved: int, float_ops: int, int_ops: int = 0) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bound_bytes_ms": by_bytes, "bound_ops_ms": by_ops,
             "bytes": int(bytes_moved), "operations": int(int_ops + float_ops)}
+
+
+def walk_ops(stats) -> float:
+    """Operations of a closest-hit or next-hit-after walk, counted by its
+    plain version: the triangle tests of the leaves entered, and a slab test
+    for every entered block and every leaf of one (the pyramid's upper
+    levels and the blocks culled are left out: the count is a floor)."""
+    return (stats.get("tri_tests", 0) * MT_OPS
+            + (stats.get("blocks_entered", 0) + stats.get("slab_tests", 0))
+            * SLAB_OPS)
+
+
+def tests_per_ray(kind, stats, rays) -> dict:
+    """A query's tests a ray from its plain version's counts: for the any
+    hit the block tests and triangle tests of whole blocks; for the closest
+    hit and next hit after the leaves' tests, and beside them
+    ``block_tri_tests_per_ray``, the triangle tests had every entered block
+    been tested whole (the walk before the leaf level)."""
+    if kind == "any":
+        return {"tri_tests_per_ray": stats["tri_tests"] / rays,
+                "blocks_entered_per_ray": stats["slab_pass"] / rays}
+    return {k + "_per_ray": stats.get(k, 0) / rays
+            for k in ("tri_tests", "slab_tests", "slab_pass",
+                      "blocks_entered", "block_tri_tests")}
 
 
 def nbytes(*tensors) -> int:
@@ -439,15 +497,17 @@ def rt_phases(dev, card) -> list:
     def on_card(a):
         return None if a is None else torch.as_tensor(a, device=dev)
 
-    def make_blocks(verts, faces, bvh, tri_block):
+    def make_blocks(verts, faces, bvh, tri_block,
+                    leaf_tris=tracer.BVH_LEAF_TRIS):
         tri = intersect.triangle_arrays(on_card(verts),
                                         on_card(np.asarray(faces, np.int64)))
+        bs = bvh_mod.build_block_set(bvh, tri_block=tri_block)
         return cuda_rt.prepare_bvh_blocks(
-            *tri, bvh_mod.build_block_set(bvh, tri_block=tri_block))
+            *tri, bs, bvh_mod.build_block_leaves(bvh, bs, leaf_tris))
 
     def compare(kind, o, d, tm, blocks, stats=None):
-        """Kernel against plain version on one query; raises on a
-        mismatch.  Returns (max |diff| of t/u/v, rays not bit-equal,
+        """Kernel against plain version on one query; raises unless they
+        are bit-equal.  Returns (max |diff| of t/u/v, rays not bit-equal,
         kernel outputs, plain seconds)."""
         if kind == "any":
             got = cuda_rt.any_hit_bvh(o, d, blocks, t_max=tm)
@@ -486,21 +546,29 @@ def rt_phases(dev, card) -> list:
                     f"version: max |diff| {float(diff.max())}")
             err = max(err, float(diff.max()))
             inexact |= g != w
-        return err, int(inexact.sum()), got, plain_s
+        if bool(inexact.any()):
+            raise AssertionError(f"closest_hit_bvh t/u/v not bit-equal to the "
+                                 f"plain version on {int(inexact.sum())} rays")
+        return err, 0, got, plain_s
 
-    # 7a. the small check scenes, whole
+    # 7a. the small check scenes, whole, the closest-hit query at every leaf
+    # size of the sweep
     err, inexact, cases = 0.0, 0, 0
     for name in sorted(scenes.BVH_CHECK_SCENES):
         verts, faces, tri_block, queries = scenes.bvh_check_queries(name)
-        blocks = make_blocks(verts, faces, bvh_mod.build(verts, faces),
-                             tri_block)
-        for kind, o, d, tm in queries:
-            e, n, _, _ = compare(kind, on_card(o), on_card(d),
-                                 on_card(tm) if kind == "closest" else
-                                 (tm if np.ndim(tm) == 0 else on_card(tm)),
-                                 blocks)
-            err, inexact, cases = max(err, e), inexact + n, cases + 1
-    small = {"cases": cases, "max_abs_err": err, "rays_not_bit_equal": inexact}
+        bvh = bvh_mod.build(verts, faces)
+        for lt in LEAF_SWEEP:
+            blocks = make_blocks(verts, faces, bvh, tri_block, lt)
+            for kind, o, d, tm in queries:
+                if kind == "any" and lt != tracer.BVH_LEAF_TRIS:
+                    continue        # #3 reads no leaves
+                e, n, _, _ = compare(
+                    kind, on_card(o), on_card(d),
+                    on_card(tm) if kind == "closest" else
+                    (tm if np.ndim(tm) == 0 else on_card(tm)), blocks)
+                err, inexact, cases = max(err, e), inexact + n, cases + 1
+    small = {"cases": cases, "leaf_sizes": list(LEAF_SWEEP),
+             "max_abs_err": err, "rays_not_bit_equal": inexact}
 
     # the full-width scene, built once for every later phase
     scene, cam = northstar_scene()
@@ -524,15 +592,19 @@ def rt_phases(dev, card) -> list:
     if o1024.device != blocks["tri"].device:
         raise AssertionError("make_frame_fn did not default to the card")
 
-    def launch_bound(kind, o, d, tm, tri_tests, slab_pass):
-        """Bound of one launch: rays, records, counts and boxes read once,
-        the outputs (prim, t, u, v, or one occlusion byte a ray) written
-        once, against the tests the plain version counted."""
+    def launch_bound(kind, o, d, tm, stats, scale=1.0):
+        """Bound of one launch: rays, records, boxes (and the closest hit's
+        leaf table, the any hit's counts) read once, the outputs (prim, t,
+        u, v, or one occlusion byte a ray) written once, against the tests
+        the plain version counted (times ``scale``, a sample's share)."""
         R = o.shape[0]
-        moved = nbytes(o, d, tm, blocks["tri"], blocks["bcnt"],
-                       blocks["aabb"])
-        moved += R if kind == "any" else 16 * R + nbytes(blocks["s2p"])
-        return bound(moved, tri_tests * MT_OPS + slab_pass * SLAB_OPS)
+        moved = nbytes(o, d, tm, blocks["tri"], blocks["aabb"])
+        if kind == "any":
+            return bound(moved + nbytes(blocks["bcnt"]) + R, scale * (
+                stats["tri_tests"] * MT_OPS + stats["slab_pass"] * SLAB_OPS))
+        moved += 16 * R + nbytes(blocks["s2p"], blocks["leaf_range"],
+                                 blocks["leaf_table"])
+        return bound(moved, scale * walk_ops(stats))
 
     # 7b. the six launches of the real frame, captured from trace_rays
     launches = capture_launches(
@@ -553,13 +625,10 @@ def rt_phases(dev, card) -> list:
             "kind": kind, "launch_rays": R, "sample_rays": os_.shape[0],
             "parked_in_sample": parked, "hits_in_sample": int(found.sum()),
             "max_abs_err": e, "rays_not_bit_equal": n,
-            "tri_tests_per_ray": stats["tri_tests"] / os_.shape[0],
-            "blocks_entered_per_ray": stats["slab_pass"] / os_.shape[0],
+            **tests_per_ray(kind, stats, os_.shape[0]),
             "plain_ms_sample": plain_s * 1e3,
             # the sample's counts scaled to the launch's rays
-            "bound": launch_bound(kind, o, d, tm,
-                                  stats["tri_tests"] * R / os_.shape[0],
-                                  stats["slab_pass"] * R / os_.shape[0])}
+            "bound": launch_bound(kind, o, d, tm, stats, R / os_.shape[0])}
         err = max(err, e)
     for name in ("bounce1", "bounce1_shadow"):
         if classes[name]["parked_in_sample"] == 0:
@@ -579,14 +648,15 @@ def rt_phases(dev, card) -> list:
             "replaces": f"skybox_rt_tpu/ops/pallas_rt.py:{src_line}",
             "launches": None, "max_abs_err": e, "ms": None,
             "plain_ms": plain_s * 1e3,
-            **launch_bound(kind, o, d, tm, stats["tri_tests"],
-                           stats["slab_pass"]),
+            **launch_bound(kind, o, d, tm, stats),
             "library_ms": None,     # no single PyTorch call computes this
             "rays": o.shape[0], "rays_not_bit_equal": n,
-            "tri_tests_per_ray": stats["tri_tests"] / o.shape[0]})
+            **tests_per_ray(kind, stats, o.shape[0])})
         err = max(err, e)
     phase("rt_kernel_vs_plain", small=small, triangles=int(faces.shape[0]),
           blocks=blocks["num_blocks"], pyramid=list(blocks["level_counts"]),
+          leaf_tris=tracer.BVH_LEAF_TRIS,
+          leaves=int(blocks["leaf_table"].shape[0]),
           classes=classes, equal=True, max_abs_err=err)
 
     # 8. the 256x256 frame against the committed JAX golden
@@ -642,14 +712,20 @@ def rt_phases(dev, card) -> list:
     # 10. timing (printed, not judged)
     timing = {}
     for name, (kind, o, d, tm) in zip(names, launches):
+        cls = classes[name]
         if kind == "any":
-            ms = median_ms(lambda: cuda_rt.any_hit_bvh(o, d, blocks,
-                                                       t_max=tm))
+            def query():
+                return cuda_rt.any_hit_bvh(o, d, blocks, t_max=tm)
         else:
-            ms = median_ms(lambda: cuda_rt.closest_hit_bvh(o, d, blocks))
-        timing[name] = {"kernel_ms": ms, "rays": o.shape[0],
-                        "mrays_per_s": o.shape[0] / ms / 1e3,
-                        "plain_ms_sample": classes[name]["plain_ms_sample"]}
+            def query():
+                return cuda_rt.closest_hit_bvh(o, d, blocks)
+        ms = median_ms(query)
+        timing[name] = {
+            "kernel_ms": ms, "graph_ms": graph_ms(query), "rays": o.shape[0],
+            "mrays_per_s": o.shape[0] / ms / 1e3,
+            "plain_ms_sample": cls["plain_ms_sample"],
+            "bound_ms": cls["bound"]["bound_ms"],
+            **{k: v for k, v in cls.items() if k.endswith("_per_ray")}}
     # ms and bound_ms are those of the widest launch (the primary one);
     # frame_ms and frame_bound_ms sum the kernel's three launches of a frame
     for entry, first in zip(entries, ("primary", "primary_shadow")):
@@ -657,6 +733,8 @@ def rt_phases(dev, card) -> list:
         entry["ms"] = timing[first]["kernel_ms"]
         entry["launch_ms"] = {n: timing[n]["kernel_ms"] for n in mine}
         entry["frame_ms"] = sum(timing[n]["kernel_ms"] for n in mine)
+        entry["graph_ms"] = timing[first]["graph_ms"]
+        entry["frame_graph_ms"] = sum(timing[n]["graph_ms"] for n in mine)
         entry["frame_bound_ms"] = sum(classes[n]["bound"]["bound_ms"]
                                       for n in mine)
     frame_ms = median_ms(lambda: frame1024(o1024, d1024))
@@ -1461,14 +1539,32 @@ def config3_phases(dev, card) -> list:
         return (torch.full((R,), -math.inf, dtype=torch.float32, device=dev),
                 torch.full((R,), -1, dtype=torch.int32, device=dev))
 
-    def compare_walks(o, d, tm, blocks, walks, plain_on=None, stats=None):
-        """`walks` walks of the kernel fed back into each other; walk k of
-        plain_on (all of them when None) against the plain version from the
-        same carry, bit for bit.  Returns ([kernel outputs a walk], rays
-        that differ, max |diff|, [plain seconds of the compared walks])."""
+    def walk_bound(blocks, o, d, stats):
+        """Bound of one next-hit-after walk: rays and carry read once, the
+        records, boxes and leaf table once, (slot, prim, t, u, v) written
+        once, against the tests the plain version counted."""
+        return bound(nbytes(o, d, blocks["tri"], blocks["s2p"],
+                            blocks["aabb"], blocks["leaf_range"],
+                            blocks["leaf_table"]) + (8 + 20) * o.shape[0],
+                     walk_ops(stats))
+
+    def compare_walks(o, d, tm, blocks, walks, plain_on=None, stats=None,
+                      past_end=False):
+        """`walks` walks of the kernel fed back into each other (with
+        past_end, on until every ray's list has ended, and then one more);
+        walk k of plain_on (all of them when None) against the plain version
+        from the same carry, bit for bit.  Returns ([kernel outputs a walk],
+        rays that differ, max |diff|, [plain seconds of the compared walks],
+        [share of the rays that enter each walk with a +inf carry])."""
         tlo, slo = start(o.shape[0])
-        outs, bad, err, plain_s = [], 0, 0.0, []
-        for k in range(walks):
+        outs, bad, err, plain_s, ended = [], 0, 0.0, [], []
+        for k in range(MAX_WALKS + 1):
+            if k >= walks and (not past_end or ended[-1] == 1.0):
+                break
+            if k == MAX_WALKS:
+                raise AssertionError(f"a ray's list did not end in "
+                                     f"{MAX_WALKS} walks")
+            ended.append(float((tlo == math.inf).float().mean()))
             got = cuda_rt.closest_hit_bvh_after(o, d, blocks, tlo, slo,
                                                 t_max=tm, t_min=1e-6)
             if plain_on is None or k in plain_on:
@@ -1485,34 +1581,40 @@ def config3_phases(dev, card) -> list:
         if bad:
             raise AssertionError(f"closest_hit_bvh_after != plain version on "
                                  f"{bad} rays, max |diff| {err}")
-        return outs, bad, err, plain_s
+        return outs, bad, err, plain_s, ended
 
-    # 20a. the check soups, whole: every walk against the plain version
+    # 20a. the check soups, whole, at every leaf size of the sweep: every
+    # walk against the plain version, past the end of every ray's list
     soups = {}
     for name in scenes.AFTER_CHECK_SOUPS:
         v0, e1, e2, tri_block, o, d, tm, walks = scenes.after_check_queries(
             name)
         verts, faces = scenes.soup_mesh(v0, e1, e2)
-        blocks = cuda_rt.prepare_bvh_blocks(
-            on_card(v0), on_card(e1), on_card(e2), bvh_mod.build_block_set(
-                bvh_mod.build_sah(verts, faces), tri_block=tri_block))
-        outs, bad, err, _ = compare_walks(on_card(o), on_card(d), on_card(tm),
-                                          blocks, walks)
-        hits = [int((g[1] >= 0).sum()) for g in outs]
-        if hits[0] == 0 or hits[-1] != 0:
-            raise AssertionError(f"{name}: hits a walk {hits}")
-        first = cuda_rt.closest_hit_bvh(on_card(o), on_card(d), blocks,
-                                        t_max=on_card(tm), t_min=1e-6)
-        if differ(outs[0][1:], first)[0]:
-            raise AssertionError(f"{name}: walk 1 != closest_hit_bvh")
-        ts = torch.stack([g[2] for g in outs], 1)
-        fin = torch.isfinite(ts[:, 1:])
-        soups[name] = {"walks": walks, "hits_a_walk": hits,
-                       "rays_differ": bad,
-                       "tied_steps": int(((ts[:, 1:] == ts[:, :-1])
-                                          & fin).sum())}
-        if soups[name]["tied_steps"] == 0:
-            raise AssertionError(f"{name}: no hit of equal t was enumerated")
+        bvh = bvh_mod.build_sah(verts, faces)
+        bs = bvh_mod.build_block_set(bvh, tri_block=tri_block)
+        for lt in LEAF_SWEEP:
+            blocks = cuda_rt.prepare_bvh_blocks(
+                on_card(v0), on_card(e1), on_card(e2), bs,
+                bvh_mod.build_block_leaves(bvh, bs, lt))
+            outs, bad, err, _, ended = compare_walks(
+                on_card(o), on_card(d), on_card(tm), blocks, walks,
+                past_end=True)
+            hits = [int((g[1] >= 0).sum()) for g in outs]
+            if hits[0] == 0 or hits[-1] != 0:
+                raise AssertionError(f"{name}: hits a walk {hits}")
+            first = cuda_rt.closest_hit_bvh(on_card(o), on_card(d), blocks,
+                                            t_max=on_card(tm), t_min=1e-6)
+            if differ(outs[0][1:], first)[0]:
+                raise AssertionError(f"{name}: walk 1 != closest_hit_bvh")
+            ts = torch.stack([g[2] for g in outs], 1)
+            fin = torch.isfinite(ts[:, 1:])
+            soups[f"{name}_leaves{lt}"] = {
+                "walks": len(outs), "hits_a_walk": hits,
+                "ended_share": ended, "rays_differ": bad,
+                "tied_steps": int(((ts[:, 1:] == ts[:, :-1]) & fin).sum())}
+            if soups[f"{name}_leaves{lt}"]["tied_steps"] == 0:
+                raise AssertionError(f"{name}: no hit of equal t was "
+                                     f"enumerated")
 
     # 21. the golden's size: the frame against the committed JAX golden and
     # against the port's scan oracle on the card
@@ -1639,52 +1741,64 @@ def config3_phases(dev, card) -> list:
           no_sync_in_frame=True, mean_rgba=[float(x) for x in
                                             color.mean((0, 1))],
           mean_abs_cell_diff_from_golden=cell_diff,
+          leaf_tris=tracer.BVH_LEAF_TRIS,
+          leaves={m["draw_index"]: int(a["blocks"]["leaf_table"].shape[0])
+                  for m, a in zip(metas, arrays) if "blocks" in a},
           host_s={"first_render_with_retry": first_s,
                   "make_frame_fn_cached": cached_s})
 
     # 20b. every walk of every kslot draw of that frame on a 65,536-ray
-    # sample, walk 1 and the last walk on all rays; walk 1 == kernel #2
+    # sample, on until every ray's list has ended and one more; every walk
+    # of the frame on all rays; walk 1 == kernel #2
     nx, ny = rays
     dirs = torch.stack([nx, ny, torch.ones_like(nx)], -1).contiguous()
     eye = torch.zeros_like(dirs)
     stride = N * N // RT_SAMPLE
     ds_, es_ = dirs[::stride].contiguous(), eye[::stride].contiguous()
     draws, largest, entry_stats = {}, None, None
-    after_err, after_bad = 0.0, 0
+    after_err, after_bad, frame_bound = 0.0, 0, 0.0
     for meta, arr in zip(metas, arrays):
         if meta["mode"] != "kslot":
             continue
         blocks = arr["blocks"]
         walks = meta["K"] + (meta["K"] < meta["P"])
         stats = {}
-        outs, bad, err, plain_s = compare_walks(es_, ds_, None, blocks, walks,
-                                                stats=stats)
+        outs, bad, err, plain_s, ended = compare_walks(
+            es_, ds_, None, blocks, walks, stats=stats, past_end=True)
         full_stats = {}
-        full, bad2, err2, full_s = compare_walks(
-            eye, dirs, None, blocks, walks, plain_on={0, walks - 1},
-            stats=full_stats)
+        full, bad2, err2, full_s, full_ended = compare_walks(
+            eye, dirs, None, blocks, walks, stats=full_stats)
         first = cuda_rt.closest_hit_bvh(eye, dirs, blocks, t_min=1e-6)
         if differ(full[0][1:], first)[0]:
             raise AssertionError(f"draw {meta['draw_index']}: walk 1 != "
                                  f"closest_hit_bvh on the same blocks")
         after_err = max(after_err, err, err2)
         after_bad += bad + bad2
+        # the bound of each walk of the frame, from its counted tests
+        walk_bounds = [walk_bound(blocks, eye, dirs, full_stats[k])
+                       for k in range(walks)]
+        frame_bound += sum(b["bound_ms"] for b in walk_bounds)
         draws[meta["draw_index"]] = {
             "P": meta["P"], "K": meta["K"], "walks": walks,
             "blocks": blocks["num_blocks"],
+            "leaves": int(blocks["leaf_table"].shape[0]),
+            "sample_walks_to_the_end": len(outs),
             "hits_a_walk_sample": [int((g[1] >= 0).sum()) for g in outs],
-            "tri_tests_per_ray": [stats[k]["tri_tests"] / RT_SAMPLE
-                                  for k in range(walks)],
-            "blocks_entered_per_ray": [stats[k]["slab_pass"] / RT_SAMPLE
-                                       for k in range(walks)],
+            "ended_share_sample": ended,
+            "ended_share": full_ended,
+            **{f"{k}_per_ray": [full_stats[w].get(k, 0) / (N * N)
+                                for w in range(walks)]
+               for k in ("tri_tests", "slab_tests", "blocks_entered",
+                         "block_tri_tests")},
+            "walk_bound_ms": [b["bound_ms"] for b in walk_bounds],
             "plain_ms_sample": [x * 1e3 for x in plain_s],
-            "plain_ms_all_rays_first_last": [x * 1e3 for x in full_s],
+            "plain_ms_all_rays": [x * 1e3 for x in full_s],
             "rays_differ": bad + bad2}
         if largest is None or meta["P"] > largest[0]["P"]:
             largest, entry_stats = (meta, arr), (full_stats, full_s)
     phase("rt_after_vs_plain", soups=soups, draws=draws, equal=True,
-          sample_rays=RT_SAMPLE, rays_differ=after_bad,
-          max_abs_err=after_err)
+          leaf_tris=tracer.BVH_LEAF_TRIS, sample_rays=RT_SAMPLE,
+          rays_differ=after_bad, max_abs_err=after_err)
     meta, arr = largest
     blocks = arr["blocks"]
     st0 = entry_stats[0][0]
@@ -1694,14 +1808,12 @@ def config3_phases(dev, card) -> list:
         "replaces": "skybox_rt_tpu/ops/pallas_rt.py:1323",
         "launches": counts["closest_hit_bvh_after"], "max_abs_err": after_err,
         "ms": None, "plain_ms": entry_stats[1][0] * 1e3,
-        **bound(nbytes(eye, dirs, blocks["tri"], blocks["bcnt"],
-                       blocks["s2p"], blocks["aabb"]) + (8 + 20) * N * N,
-                st0["tri_tests"] * MT_OPS + st0["slab_pass"] * SLAB_OPS),
+        **walk_bound(blocks, eye, dirs, st0),
         "library_ms": None,     # no single PyTorch call computes this
         "rays": N * N, "rays_differ": after_bad,
         "draw": meta["draw_index"], "triangles": meta["P"],
-        "tri_tests_per_ray": st0["tri_tests"] / (N * N),
-        "blocks_entered_per_ray": st0["slab_pass"] / (N * N)}
+        **tests_per_ray("closest", st0, N * N),
+        "frame_bound_ms": frame_bound}
 
     # 23. rt.diff on the card: forward and backward, against the CPU run of
     # the same code, twice
@@ -1894,27 +2006,47 @@ def config3_phases(dev, card) -> list:
           equal=True, rays_differ=0)
 
     # 25. timing (printed, not judged)
-    t = {"after_walks_ms": {}, "winner_ms": {}}
+    # each launch timed around the wrapper's call and as a CUDA graph's
+    # replay (graph_ms)
+    t = {"after_walks_ms": {}, "after_walks_graph_ms": {}, "winner_ms": {},
+         "winner_graph_ms": {}}
     for m, a in zip(metas, arrays):
+        di = m["draw_index"]
         if m["mode"] == "winner":
             oo, dd = ((dirs * m["far_d"], -dirs) if m["farthest"]
                       else (eye, dirs))
-            t["winner_ms"][m["draw_index"]] = median_ms(
-                lambda: cuda_rt.closest_hit_bvh(oo, dd, a["blocks"],
-                                                t_min=1e-6))
+
+            def winner():
+                return cuda_rt.closest_hit_bvh(oo, dd, a["blocks"],
+                                               t_min=1e-6)
+            t["winner_ms"][di] = median_ms(winner)
+            t["winner_graph_ms"][di] = graph_ms(winner)
         elif m["mode"] == "kslot":
             walks = m["K"] + (m["K"] < m["P"])
-            outs, _, _, _ = compare_walks(eye, dirs, None, a["blocks"], walks,
-                                          plain_on=set())
+            outs = compare_walks(eye, dirs, None, a["blocks"], walks,
+                                 plain_on=set())[0]
             carries = [start(N * N)] + [(g[2], g[0]) for g in outs[:-1]]
-            t["after_walks_ms"][m["draw_index"]] = [median_ms(
-                lambda: cuda_rt.closest_hit_bvh_after(
-                    eye, dirs, a["blocks"], tlo, slo, t_min=1e-6))
-                for tlo, slo in carries]
+            t["after_walks_ms"][di], t["after_walks_graph_ms"][di] = [], []
+            for tlo, slo in carries:
+                def walk():
+                    return cuda_rt.closest_hit_bvh_after(
+                        eye, dirs, a["blocks"], tlo, slo, t_min=1e-6)
+                t["after_walks_ms"][di].append(median_ms(walk))
+                t["after_walks_graph_ms"][di].append(graph_ms(walk))
+    # per walk of the frame: the share of rays that enter with a +inf carry
+    # (they exit at once) and the tests a ray, at the leaves and had every
+    # entered block been tested whole (phase 20, all rays)
+    t["after_walks"] = {di: {k: dr[k] for k in (
+        "ended_share", "tri_tests_per_ray", "block_tri_tests_per_ray",
+        "slab_tests_per_ray", "walk_bound_ms")} for di, dr in draws.items()}
     after_entry["ms"] = t["after_walks_ms"][meta["draw_index"]][0]
     after_entry["walk_ms"] = t["after_walks_ms"]
     after_entry["frame_ms"] = sum(sum(v) for v in
                                   t["after_walks_ms"].values())
+    after_entry["graph_ms"] = t["after_walks_graph_ms"][meta["draw_index"]][0]
+    after_entry["walk_graph_ms"] = t["after_walks_graph_ms"]
+    after_entry["frame_graph_ms"] = sum(sum(v) for v in
+                                        t["after_walks_graph_ms"].values())
     scan = next((m, a) for m, a in zip(metas, arrays) if m["mode"] == "scan")
     zb0, c0 = rb.clear_buffers(N * N, dev)
     t["scan_draw_ms"] = median_ms(lambda: rb._scan_run(

@@ -3,6 +3,7 @@
     python3 scripts/torch_rt_profile.py                      # needs a CUDA card
     python3 scripts/torch_rt_profile.py --scene small
     python3 scripts/torch_rt_profile.py --tri-block 16 32 64 128
+    python3 scripts/torch_rt_profile.py --leaf-tris 8 16 32 [--scene config3]
     python3 scripts/torch_rt_profile.py --build-times
     python3 scripts/torch_rt_profile.py --scene small --engine pallas_worklist
     python3 scripts/torch_rt_profile.py --scene config3 [--size 512]
@@ -38,6 +39,17 @@ primary closest-hit launch and of the whole frame, Mrays/s, and the largest
 difference of the image from the size-256 image (the sizes differ only in
 which of two equal-t hits wins).  The module constant is set for the run and
 restored; nothing in the package reads an option for it.
+
+``--leaf-tris SIZES`` instead sweeps the leaf size inside a block,
+rt.tracer.BVH_LEAF_TRIS, which the closest-hit and next-hit-after queries of
+the large-scene frame and of the config-3 frame walk: for each size (a size
+may be given twice, to see the drift of one call), the large scene's leaf
+count, the milliseconds of the frame's three closest-hit launches (each
+alone, CUDA events) and of the whole frame, and the largest difference of
+the image from the first size's; with ``--scene config3`` the milliseconds
+of every next-hit-after walk and closest-hit launch of the frame at
+``--size`` (summed), of the whole frame, and the largest difference from the
+first size's image.  The module constant is set for the run and restored.
 
 ``--build-times`` instead times the kernels' build both ways into a
 temporary directory: one nvcc over all sources, and one nvcc a source
@@ -81,8 +93,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (median_ms, northstar_scene, nvidia_smi,  # noqa: E402
-                        small_scene)
+from chip_smoke import (capture_launches, median_ms,  # noqa: E402
+                        northstar_scene, nvidia_smi, small_scene)
 from skybox_rt_tpu_torch import _build  # noqa: E402
 from skybox_rt_tpu_torch.ops import cuda_rt  # noqa: E402
 from skybox_rt_tpu_torch.rt import bvh as bvh_mod  # noqa: E402
@@ -120,8 +132,10 @@ def sweep_tri_block(sizes, scene, cam, cfg, dev, card) -> None:
         for tb in sorted(set(sizes) | {256}, reverse=True):     # 256 first
             tracer.BVH_TRI_BLOCK = tb
             frame, (o, d) = tracer.make_frame_fn(scene, cam, cfg)
+            bs = bvh_mod.build_block_set(scene.bvh, tri_block=tb)
             blocks = cuda_rt.prepare_bvh_blocks(
-                *tri, bvh_mod.build_block_set(scene.bvh, tri_block=tb))
+                *tri, bs, bvh_mod.build_block_leaves(
+                    scene.bvh, bs, tracer.BVH_LEAF_TRIS))
             images[tb] = frame(o, d)
             frame_ms = event_ms(lambda: frame(o, d))
             print(json.dumps({
@@ -136,6 +150,39 @@ def sweep_tri_block(sizes, scene, cam, cfg, dev, card) -> None:
                 "card": card}), flush=True)
     finally:
         tracer.BVH_TRI_BLOCK = kept
+
+
+def sweep_leaf_tris(sizes, scene, cam, cfg, card) -> None:
+    kept, first = tracer.BVH_LEAF_TRIS, None
+    try:
+        for lt in sizes:
+            tracer.BVH_LEAF_TRIS = lt
+            frame, (o, d) = tracer.make_frame_fn(scene, cam, cfg)
+            img = frame(o, d)
+            first = img if first is None else first
+            bs = bvh_mod.build_block_set(scene.bvh,
+                                         tri_block=tracer.BVH_TRI_BLOCK)
+            blocks = cuda_rt.prepare_bvh_blocks(
+                *device_triangles(scene, o.device), bs,
+                bvh_mod.build_block_leaves(scene.bvh, bs, lt))
+            launches = capture_launches(
+                scene, cfg, lambda o, d: cuda_rt.closest_hit_bvh(o, d, blocks),
+                lambda o, d, tm: cuda_rt.any_hit_bvh(o, d, blocks, t_max=tm),
+                o, d)
+            closest_ms = [event_ms(lambda: cuda_rt.closest_hit_bvh(
+                lo, ld, blocks)) for kind, lo, ld, _ in launches
+                if kind == "closest"]
+            frame_ms = event_ms(lambda: frame(o, d))
+            print(json.dumps({
+                "leaf_tris": lt, "leaves": int(blocks["leaf_table"].shape[0]),
+                "closest_launches_ms": closest_ms,
+                "closest_frame_ms": sum(closest_ms),
+                "frame_ms": frame_ms,
+                "frame_mrays_per_s": SIZE * SIZE * 6 / frame_ms / 1e3,
+                "max_abs_diff_from_first": float((img - first).abs().max()),
+                "card": card}), flush=True)
+    finally:
+        tracer.BVH_LEAF_TRIS = kept
 
 
 def build_times(card) -> None:
@@ -200,6 +247,35 @@ def profile_line(run, ours_substr, card) -> None:
                 for k, ms, n in rows[:10]]}, "card": card}), flush=True)
 
 
+def bvh_kernel_ms(metas, arrays, nx, ny):
+    """CUDA-event milliseconds of a config-3 frame's BVH-block launches, each
+    alone on the frame's rays and carries: every next-hit-after walk of the
+    K-slot draws and the closest-hit launch of the winner draws."""
+    import math
+    dirs = torch.stack([nx, ny, torch.ones_like(nx)], -1)
+    eye = torch.zeros_like(dirs)
+    R = nx.shape[0]
+    walks_ms, winner_ms = [], []
+    for m, a in zip(metas, arrays):
+        if m["mode"] == "winner":
+            o, d = ((dirs * m["far_d"], -dirs) if m["farthest"]
+                    else (eye, dirs))
+            winner_ms.append(event_ms(lambda: cuda_rt.closest_hit_bvh(
+                o, d, a["blocks"], t_min=1e-6)))
+        elif m["mode"] == "kslot":
+            tlo = torch.full((R,), -math.inf, device=nx.device)
+            slo = torch.full((R,), -1, dtype=torch.int32, device=nx.device)
+            for _ in range(m["K"] + (m["K"] < m["P"])):
+                walks_ms.append(event_ms(
+                    lambda: cuda_rt.closest_hit_bvh_after(
+                        eye, dirs, a["blocks"], tlo, slo, t_min=1e-6)))
+                slot, _, tlo, _, _ = cuda_rt.closest_hit_bvh_after(
+                    eye, dirs, a["blocks"], tlo, slo, t_min=1e-6)
+                slo = slot
+    return {"walks": sum(walks_ms), "winner": sum(winner_ms),
+            "walk_count": len(walks_ms)}
+
+
 def config3(args, card) -> int:
     """--scene config3: the ray-traced CGLTrace frame of rt.frame."""
     import math
@@ -214,6 +290,24 @@ def config3(args, card) -> int:
         trace = cgltrace.load_trace(cgltrace.trace_path("synth_config3"))
         img = frame_mod.render_trace_rt_fused(trace, n, n)
         return img, frame_mod.make_frame_fn(trace, n, n)
+
+    if args.leaf_tris:
+        kept, first = tracer.BVH_LEAF_TRIS, None
+        try:
+            for lt in args.leaf_tris:
+                tracer.BVH_LEAF_TRIS = lt
+                img, (fn, arrays, rays, metas) = prepared()
+                first = img if first is None else first
+                print(json.dumps({
+                    "leaf_tris": lt, "size": n,
+                    "kernel_ms": bvh_kernel_ms(metas, arrays, *rays),
+                    "frame_ms": event_ms(lambda: fn(arrays, *rays)),
+                    "max_abs_diff_from_first": float(
+                        np.abs(img - first).max()),
+                    "card": card}), flush=True)
+        finally:
+            tracer.BVH_LEAF_TRIS = kept
+        return 0
 
     if args.scan_max_prims:
         kept, first = frame_mod._SCAN_MAX_PRIMS, None
@@ -299,6 +393,7 @@ def config3(args, card) -> int:
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tri-block", type=int, nargs="+", metavar="SIZE")
+    ap.add_argument("--leaf-tris", type=int, nargs="+", metavar="SIZE")
     ap.add_argument("--build-times", action="store_true")
     ap.add_argument("--scene", choices=("northstar", "small", "config3"),
                     default="northstar")
@@ -334,6 +429,12 @@ def main(argv) -> int:
                              "it with --scene northstar")
         sweep_tri_block(args.tri_block, scene, cam, cfg, dev, card)
         return 0
+    if args.leaf_tris:
+        if small:
+            raise SystemExit("--leaf-tris sweeps the BVH-block engine: use "
+                             "it with --scene northstar or config3")
+        sweep_leaf_tris(args.leaf_tris, scene, cam, cfg, card)
+        return 0
     frame, (o, d) = tracer.make_frame_fn(scene, cam, cfg)
 
     def run():
@@ -364,8 +465,11 @@ def main(argv) -> int:
         def occluded(o, d, tm):
             return cuda_rt.any_hit_clustered(o, d, clusters, t_max=tm)
     else:
-        blocks = cuda_rt.prepare_bvh_blocks(*tri, bvh_mod.build_block_set(
-            scene.bvh, tri_block=tracer.BVH_TRI_BLOCK))
+        bs = bvh_mod.build_block_set(scene.bvh,
+                                     tri_block=tracer.BVH_TRI_BLOCK)
+        blocks = cuda_rt.prepare_bvh_blocks(
+            *tri, bs, bvh_mod.build_block_leaves(scene.bvh, bs,
+                                                 tracer.BVH_LEAF_TRIS))
 
         def closest(o, d):
             return cuda_rt.closest_hit_bvh(o, d, blocks)

@@ -41,13 +41,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # 11 tensor pointers, 21 ints, the stream
     "skybox_visibility_tiles": [_P] * 11 + [_I] * 21 + [_P],
-    # o d tmax tri bcnt s2p aabb, host level_off level_cnt, num_levels
-    # tri_block, t_min, R, prim t u v, the stream
-    "skybox_rt_closest_hit_bvh": [_P] * 9 + [_I, _I, _F, _I] + [_P] * 5,
-    # o d tmax tlo slo tri bcnt s2p aabb, host level_off level_cnt,
-    # num_levels tri_block, t_min, R, slot prim t u v, the stream
-    "skybox_rt_closest_hit_bvh_after": [_P] * 11 + [_I, _I, _F, _I]
-                                       + [_P] * 6,
+    # o d tmax tri s2p aabb leaf_range leaf_table, host level_off
+    # level_cnt, num_levels, t_min, R, prim t u v, the stream
+    "skybox_rt_closest_hit_bvh": [_P] * 10 + [_I, _F, _I] + [_P] * 5,
+    # o d tmax tlo slo tri s2p aabb leaf_range leaf_table, host level_off
+    # level_cnt, num_levels, t_min, R, slot prim t u v, the stream
+    "skybox_rt_closest_hit_bvh_after": [_P] * 12 + [_I, _F, _I] + [_P] * 6,
     # o d tmax tri bcnt aabb, host level_off level_cnt, num_levels
     # tri_block, t_min, R, occ, the stream
     "skybox_rt_any_hit_bvh": [_P] * 8 + [_I, _I, _F, _I] + [_P] * 2,

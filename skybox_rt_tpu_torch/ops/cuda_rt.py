@@ -50,7 +50,11 @@ does not depend on the order.
 
 Records are the port's own layout: ``(rows, 12)`` float32 [v0 e1 e2 | 3 of
 padding], three float4 a row.  BVH blocks hold ``C * tri_block`` rows; rows
-past a block's ``bcnt[b]`` triangles are zero and never read.  Clusters hold
+past a block's ``bcnt[b]`` triangles are zero and never read.  The
+closest-hit and next-hit-after queries over them test a block's triangles
+leaf by leaf (rt.bvh.build_block_leaves: ascending slot ranges with their
+own boxes, the blocks dict's ``leaf_range`` / ``leaf_table``); the any-hit
+query tests an entered block whole.  Clusters hold
 the P triangles in treelet order, the flat query in prim order, the streamed
 and worklist queries in the caller's ``order``, cut into blocks of
 ``tri_block`` rows with the last one shorter.
@@ -95,9 +99,13 @@ def reset_launch_counts() -> None:
     launch_counts.clear()
 
 
-def pack_blocks(rows9, bcnt, s2p, levels, tri_block, num_prims, device):
+def pack_blocks(rows9, bcnt, s2p, levels, tri_block, num_prims, device,
+                leaves=None):
     """The dict the queries take, from numpy arrays: rows9 (C*TB, 9)
-    records in slot order, bcnt (C,), s2p (C*TB,), levels [(C_l, 6)]."""
+    records in slot order, bcnt (C,), s2p (C*TB,), levels [(C_l, 6)], and
+    leaves, rt.bvh.build_block_leaves of the same blocks.  Without leaves
+    only :func:`any_hit_bvh` takes the dict; the closest-hit queries
+    refuse it."""
     device = torch.device(device)
     num_blocks = int(bcnt.shape[0])
     if len(levels) > MAX_LEVELS:
@@ -119,6 +127,10 @@ def pack_blocks(rows9, bcnt, s2p, levels, tri_block, num_prims, device):
     counts = [int(a.shape[0]) for a in lv]
     offsets = [sum(counts[:l]) for l in range(len(counts))]
     aabb = torch.cat(lv).contiguous().to(device)
+    leaf_range = leaf_table = None
+    if leaves is not None:
+        leaf_range, leaf_table = _leaf_rows(leaves, bcnt, tri_block)
+        leaf_range, leaf_table = leaf_range.to(device), leaf_table.to(device)
     return {
         "tri": tri.to(device),                            # (C*TB, 12)
         "bcnt": torch.as_tensor(bcnt, dtype=torch.int32).to(device),
@@ -127,18 +139,60 @@ def pack_blocks(rows9, bcnt, s2p, levels, tri_block, num_prims, device):
         "levels": [aabb[o:o + c] for o, c in zip(offsets, counts)],
         "level_offsets": tuple(offsets),
         "level_counts": tuple(counts),
+        "leaf_range": leaf_range,                         # (C + 1,) or None
+        "leaf_table": leaf_table,                         # (L, 8) or None
         "tri_block": int(tri_block),
         "num_blocks": num_blocks,
         "num_prims": int(num_prims),
     }
 
 
-def prepare_bvh_blocks(v0, e1, e2, block_set, device=None):
+def _leaf_rows(leaves, bcnt, tri_block):
+    """(range (C + 1,) int32, table (L, 8) float32) of a leaf table: one
+    row a leaf, [box | first slot, count as bit patterns], two float4 for
+    the kernel.  Raises unless every block's leaves tile its slots [0,
+    bcnt) in ascending order."""
+    rng = np.asarray(leaves["range"], np.int64)
+    box = np.asarray(leaves["aabb"], np.float32)
+    first = np.asarray(leaves["first"], np.int64)
+    count = np.asarray(leaves["count"], np.int64)
+    bcnt = np.asarray(bcnt, np.int64)
+    C, L = bcnt.shape[0], first.shape[0]
+    if rng.shape != (C + 1,) or rng[0] != 0 or rng[-1] != L \
+            or (np.diff(rng) < 0).any() or box.shape != (L, 6) \
+            or count.shape != (L,):
+        raise ValueError(f"leaf table disagrees with {C} blocks: range "
+                         f"{rng.shape}, aabb {box.shape}, first "
+                         f"{first.shape}, count {count.shape}")
+    per_block = np.diff(rng)
+    block = np.repeat(np.arange(C), per_block)
+    end = first + count
+    # a block's first leaf starts at its first slot, every other one where
+    # the leaf before it ended; a block's last leaf ends at its count
+    start = np.where(np.arange(L) == rng[block], block * tri_block,
+                     np.roll(end, 1))
+    full = per_block > 0
+    block_end = np.arange(C) * tri_block + bcnt
+    if (count < 1).any() or (first != start).any() \
+            or (bcnt[~full] != 0).any() \
+            or not np.array_equal(end[rng[1:][full] - 1], block_end[full]):
+        raise ValueError("the leaves do not tile their blocks' slots in "
+                         "ascending order")
+    table = np.zeros((L, 8), np.float32)
+    table[:, :6] = box
+    table[:, 6:8] = np.stack([first, count], 1).astype(np.int32).view(
+        np.float32)
+    return (torch.from_numpy(rng.astype(np.int32)),
+            torch.from_numpy(table))
+
+
+def prepare_bvh_blocks(v0, e1, e2, block_set, leaves, device=None):
     """Pack triangle records into the block-slot layout (once per scene).
 
     v0, e1, e2: (P, 3) float32 tensors (rt.intersect.triangle_arrays);
-    block_set: rt.bvh.build_block_set output.  The blocks land on ``device``
-    (default: where v0 lies)."""
+    block_set: rt.bvh.build_block_set output; leaves: rt.bvh.
+    build_block_leaves of the same BVH and block_set.  The blocks land on
+    ``device`` (default: where v0 lies)."""
     device = v0.device if device is None else torch.device(device)
     s2p = torch.as_tensor(block_set["slot_to_prim"]).long()
     tri9 = torch.cat([v0, e1, e2], dim=1).cpu()             # (P, 9)
@@ -147,7 +201,7 @@ def prepare_bvh_blocks(v0, e1, e2, block_set, device=None):
                        torch.zeros((), dtype=tri9.dtype))
     return pack_blocks(rows.numpy(), block_set["bcnt"],
                        block_set["slot_to_prim"], block_set["aabb_levels"],
-                       block_set["tri_block"], P, device)
+                       block_set["tri_block"], P, device, leaves=leaves)
 
 
 def pack_records(v0, e1, e2, order=None):
@@ -313,32 +367,45 @@ def _merge_best(best, idx, hit, t, u, v, slots):
     best_v[w] = v[better].gather(1, jb)[:, 0]
 
 
-def _closest_over(tri, boxes, o, d, inv, tmax0, t_min, stats, after=None):
+def _closest_box(best, tri, box, first, n, rays, o, d, inv, tmax0, t_min,
+                 stats, after):
+    """Fold one box (AABB row, first record row, n) into the running
+    minimum ``best`` for ``rays`` (an index tensor; None: all rays): the
+    slab gate against each ray's running best t, then the (rays that pass x
+    n triangles) Möller–Trumbore batch.  With ``after`` = (t_lo (r,)
+    float32, slot_lo (r,) int64) only hits with (t_lo, slot_lo) < (t, slot)
+    in lexicographic order count."""
+    if rays is None:
+        idx_all = torch.nonzero(_slab_pass(box, o, inv, best[0]))[:, 0]
+        tested = best[0].shape[0]
+    else:
+        idx_all = rays[_slab_pass(box, _take(o, rays), _take(inv, rays),
+                                  best[0][rays])]
+        tested = rays.numel()
+    _count(stats, slab_tests=tested, slab_pass=idx_all.numel(),
+           tri_tests=idx_all.numel() * n)
+    if n == 0:
+        return
+    slots = first + torch.arange(n, device=tmax0.device)[None, :]
+    for idx in _idx_chunks(idx_all, n):
+        ok, t, u, v = _range_tests(tri, first, n, o, d, idx, t_min)
+        hit = ok & (t < tmax0[idx][:, None])
+        if after is not None:
+            t_lo = after[0][idx][:, None]
+            hit = hit & ((t > t_lo) | ((t == t_lo)
+                                       & (slots > after[1][idx][:, None])))
+        _merge_best(best, idx, hit, t, u, v, slots)
+
+
+def _closest_over(tri, boxes, o, d, inv, tmax0, t_min, stats):
     """The running lexicographic (t, slot) minimum of rays (o, d, inv:
     component tuples; tmax0 (r,)) over ``boxes``, an iterable of (AABB row,
-    first record row, n) met in that order: per box the slab gate against
-    each ray's running best t, then the (rays that pass x n triangles)
-    Möller–Trumbore batch.  With ``after`` = (t_lo (r,) float32, slot_lo (r,)
-    int64) only hits with (t_lo, slot_lo) < (t, slot) in lexicographic order
-    count.  Returns (best_t, best_slot [-1 = none], u, v)."""
-    R = tmax0.shape[0]
-    dev = tmax0.device
+    first record row, n) met in that order, each through
+    :func:`_closest_box`.  Returns (best_t, best_slot [-1 = none], u, v)."""
     best = _new_best(tmax0)
     for box, first, n in boxes:
-        idx_all = torch.nonzero(_slab_pass(box, o, inv, best[0]))[:, 0]
-        _count(stats, slab_tests=R, slab_pass=idx_all.numel(),
-               tri_tests=idx_all.numel() * n)
-        if n == 0:
-            continue
-        slots = first + torch.arange(n, device=dev)[None, :]
-        for idx in _idx_chunks(idx_all, n):
-            ok, t, u, v = _range_tests(tri, first, n, o, d, idx, t_min)
-            hit = ok & (t < tmax0[idx][:, None])
-            if after is not None:
-                t_lo = after[0][idx][:, None]
-                hit = hit & ((t > t_lo) | ((t == t_lo)
-                                           & (slots > after[1][idx][:, None])))
-            _merge_best(best, idx, hit, t, u, v, slots)
+        _closest_box(best, tri, box, first, n, None, o, d, inv, tmax0, t_min,
+                     stats, None)
     return best
 
 
@@ -382,28 +449,70 @@ def _block_boxes(blocks, block_order):
     return ((level0[b], b * TB, counts[b]) for b in order)
 
 
+def _leaf_table(blocks):
+    if blocks.get("leaf_table") is None:
+        raise ValueError("the blocks have no leaf table: pass "
+                         "rt.bvh.build_block_leaves to prepare_bvh_blocks")
+    return blocks["leaf_range"], blocks["leaf_table"]
+
+
+def _closest_over_blocks(blocks, block_order, o, d, inv, tmax0, t_min, stats,
+                         after=None):
+    """:func:`_closest_over` over the blocks' leaves: the blocks in
+    ascending id (or ``block_order``), in each the slab gate of every ray
+    against its running best t, and for the rays that enter, the block's
+    leaves in ascending order through :func:`_closest_box`.
+
+    The block gate changes no result: every leaf box lies inside its
+    block's box and the running best only falls, so a ray that passes a
+    leaf's gate has passed its block's (csrc/rt_bvh.cu, "Order").  It is
+    here to count the kernel's work: ``stats`` gains ``blocks_entered`` and
+    ``block_tri_tests`` (the triangle tests had every entered block been
+    tested whole) beside the leaves' ``slab_tests``, ``slab_pass`` and
+    ``tri_tests``."""
+    rng, table = _leaf_table(blocks)
+    rng = rng.tolist()
+    ranges = table[:, 6:8].contiguous().view(torch.int32).tolist()
+    counts = blocks["bcnt"].tolist()
+    level0 = blocks["levels"][0]
+    best = _new_best(tmax0)
+    order = range(blocks["num_blocks"]) if block_order is None else block_order
+    for b in order:
+        entered = torch.nonzero(_slab_pass(level0[b], o, inv, best[0]))[:, 0]
+        _count(stats, blocks_entered=entered.numel(),
+               block_tri_tests=entered.numel() * counts[b])
+        if entered.numel() == 0:
+            continue
+        for k in range(rng[b], rng[b + 1]):
+            _closest_box(best, blocks["tri"], table[k], *ranges[k], entered,
+                         o, d, inv, tmax0, t_min, stats, after)
+    return best
+
+
 def closest_hit_bvh_reference(orig, direction, blocks, t_max=None,
                               t_min: float = T_MIN, block_order=None,
                               stats=None):
-    """Plain torch closest hit over the blocks, on any device: what
+    """Plain torch closest hit over the blocks' leaves, on any device: what
     :func:`closest_hit_bvh` returns.
 
-    Loops over level-0 blocks (ascending, or ``block_order``) with
-    :func:`_closest_over`.  ``stats``, a dict, gains ``slab_tests``,
-    ``slab_pass`` and ``tri_tests`` (counts of this call's ray-box tests, of
-    those that passed, and of its ray-triangle tests)."""
+    Loops over level-0 blocks (ascending, or ``block_order``) and their
+    leaves with :func:`_closest_over_blocks`.  ``stats``, a dict, gains the
+    counts named there: ``slab_tests`` / ``slab_pass`` count the leaves'
+    ray-box tests and those that passed, ``tri_tests`` the ray-triangle
+    tests."""
     o, d, inv = _components(orig, direction)
     tmax0 = _per_ray_tmax(math.inf if t_max is None else t_max,
                           orig.shape[0], orig.device)
-    best = _closest_over(blocks["tri"], _block_boxes(blocks, block_order),
-                         o, d, inv, tmax0, t_min, stats)
+    best = _closest_over_blocks(blocks, block_order, o, d, inv, tmax0, t_min,
+                                stats)
     return _closest_result(*best, blocks["s2p"])
 
 
 def any_hit_bvh_reference(orig, direction, blocks, t_max=1.0,
                           t_min: float = T_MIN, block_order=None, stats=None):
     """Plain torch occlusion query over the blocks, on any device: whether
-    any triangle hits with t_min < t < t_max (a number or (R,))."""
+    any triangle hits with t_min < t < t_max (a number or (R,)).  Every
+    entered block is tested whole (no leaf table)."""
     o, d, inv = _components(orig, direction)
     tmax = _per_ray_tmax(t_max, orig.shape[0], orig.device)
     return _any_over(blocks["tri"], _block_boxes(blocks, block_order),
@@ -415,15 +524,24 @@ def closest_hit_bvh_after_reference(orig, direction, blocks, t_lo, slot_lo,
                                     block_order=None, stats=None):
     """Plain torch next hit after the carry, on any device: what
     :func:`closest_hit_bvh_after` returns.  The loop of
-    :func:`closest_hit_bvh_reference` (level-0 blocks ascending, or
-    ``block_order``; the slab gate's far bound is the running best t and
-    admits equality) with the lower window (t_lo, slot_lo) < (t, slot)."""
+    :func:`closest_hit_bvh_reference` (the slab gates' far bound is the
+    running best t and admits equality) with the lower window (t_lo,
+    slot_lo) < (t, slot).
+
+    A ray whose carry has t_lo = +inf is a miss without a loop, as in the
+    kernel.  That exit is exact: a hit has t < t_max <= +inf, so (+inf,
+    slot_lo) < (t, slot) never holds, and the loop would return the same
+    miss; it only keeps such rays out of ``stats``."""
     o, d, inv = _components(orig, direction)
     tmax0 = _per_ray_tmax(math.inf if t_max is None else t_max,
                           orig.shape[0], orig.device)
-    best = _closest_over(blocks["tri"], _block_boxes(blocks, block_order),
-                         o, d, inv, tmax0, t_min, stats,
-                         after=(t_lo, slot_lo.long()))
+    best = _new_best(tmax0)
+    live = torch.nonzero(t_lo != math.inf)[:, 0]
+    got = _closest_over_blocks(
+        blocks, block_order, _take(o, live), _take(d, live), _take(inv, live),
+        tmax0[live], t_min, stats, after=(t_lo[live], slot_lo.long()[live]))
+    for whole, part in zip(best, got):
+        whole[live] = part
     slot = best[1].to(torch.int32)
     return (slot, *_closest_result(*best, blocks["s2p"]))
 
@@ -648,14 +766,23 @@ def _check_on_card(dev, what, tensors):
             raise ValueError(f"{what}[{name!r}] must be contiguous")
 
 
-def _kernel_args(orig, direction, blocks):
+def _kernel_args(orig, direction, blocks, leaves=False):
+    """(o, d, level offsets, level counts, levels) for a BVH-block launch,
+    after checking the blocks (and with ``leaves`` their leaf table) on the
+    rays' card."""
     slots = blocks["num_blocks"] * blocks["tri_block"]
-    _check_on_card(orig.device, "blocks", (
+    tensors = [
         ("tri", blocks["tri"], (slots, RECORD_WIDTH), torch.float32),
         ("bcnt", blocks["bcnt"], (blocks["num_blocks"],), torch.int32),
         ("s2p", blocks["s2p"], (slots,), torch.int32),
         ("aabb", blocks["aabb"], (sum(blocks["level_counts"]), 6),
-         torch.float32)))
+         torch.float32)]
+    if leaves:
+        rng, table = _leaf_table(blocks)
+        tensors += [
+            ("leaf_range", rng, (blocks["num_blocks"] + 1,), torch.int32),
+            ("leaf_table", table, (table.shape[0], 8), torch.float32)]
+    _check_on_card(orig.device, "blocks", tensors)
     n = len(blocks["level_offsets"])
     if not 1 <= n <= MAX_LEVELS:
         raise ValueError(f"AABB pyramid has {n} levels, the kernel's stack "
@@ -711,14 +838,14 @@ def closest_hit_bvh(orig, direction, blocks, t_max=None,
     if orig.device.type == "cpu":
         return closest_hit_bvh_reference(orig, direction, blocks, t_max,
                                          t_min)
-    o, d, off, cnt, n = _kernel_args(orig, direction, blocks)
+    o, d, off, cnt, n = _kernel_args(orig, direction, blocks, leaves=True)
     R = o.shape[0]
     prim, t, u, v = _closest_outputs(R, o.device)
     _launch("skybox_rt_closest_hit_bvh", o.device,
             _ptr(o), _ptr(d), _ptr(t_max), _ptr(blocks["tri"]),
-            _ptr(blocks["bcnt"]), _ptr(blocks["s2p"]),
-            _ptr(blocks["aabb"]), off, cnt, n, blocks["tri_block"],
-            t_min, R, _ptr(prim), _ptr(t), _ptr(u), _ptr(v))
+            _ptr(blocks["s2p"]), _ptr(blocks["aabb"]),
+            _ptr(blocks["leaf_range"]), _ptr(blocks["leaf_table"]),
+            off, cnt, n, t_min, R, _ptr(prim), _ptr(t), _ptr(u), _ptr(v))
     return prim, t, u, v
 
 
@@ -849,13 +976,14 @@ def closest_hit_bvh_after(orig, direction, blocks, t_lo, slot_lo, t_max=None,
                                                slot_lo, t_max, t_min)
     _check_on_card(dev, "carry", (("t_lo", t_lo, (R,), torch.float32),
                                   ("slot_lo", slot_lo, (R,), torch.int32)))
-    o, d, off, cnt, n = _kernel_args(orig, direction, blocks)
+    o, d, off, cnt, n = _kernel_args(orig, direction, blocks, leaves=True)
     slot = torch.empty((R,), dtype=torch.int32, device=dev)
     prim, t, u, v = _closest_outputs(R, dev)
     _launch("skybox_rt_closest_hit_bvh_after", dev,
             _ptr(o), _ptr(d), _ptr(t_max), _ptr(t_lo), _ptr(slot_lo),
-            _ptr(blocks["tri"]), _ptr(blocks["bcnt"]), _ptr(blocks["s2p"]),
-            _ptr(blocks["aabb"]), off, cnt, n, blocks["tri_block"], t_min, R,
+            _ptr(blocks["tri"]), _ptr(blocks["s2p"]), _ptr(blocks["aabb"]),
+            _ptr(blocks["leaf_range"]), _ptr(blocks["leaf_table"]),
+            off, cnt, n, t_min, R,
             _ptr(slot), _ptr(prim), _ptr(t), _ptr(u), _ptr(v))
     return slot, prim, t, u, v
 

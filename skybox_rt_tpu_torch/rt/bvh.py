@@ -346,23 +346,13 @@ def build_lbvh(verts: np.ndarray, faces: np.ndarray,
     return b.finish(leaf_size)
 
 
-def build_clusters(bvh: BVH, max_tris: int = 64):
-    """Cut the BVH into treelets of <= max_tris contiguous primitives.
+def _subtree_ranges(bvh: BVH):
+    """(first, count) int64 arrays: every node's subtree range in
+    prim_order, in ONE reverse sweep.
 
-    Because build() stores leaf prims contiguously in prim_order, any
-    subtree covers a contiguous [first, first+count) range — a treelet is
-    just that range plus its AABB, so a traversal tests the treelet AABB
-    once and skips the whole triangle range on a miss.
-
-    Returns dict(aabb (C, 8) f32 [min.xyz max.xyz 0 0], first (C,) i32,
-    count (C,) i32, order (P,) i32 = prim_order).
-    """
-    aabbs, firsts, counts = [], [], []
-
-    # subtree (first, count) for every node in ONE reverse sweep:
-    # build() appends children after parents, so a reverse index sweep
-    # sees both children before their parent (no recursion — the naive
-    # per-node recursion is quadratic and took minutes at 1M prims)
+    build() appends children after parents, so a reverse index sweep sees
+    both children before their parent (no recursion: the naive per-node
+    recursion is quadratic and took minutes at 1M prims)."""
     N = bvh.num_nodes
     sub_first = bvh.node_first.astype(np.int64).copy()
     sub_count = bvh.node_count.astype(np.int64).copy()
@@ -377,27 +367,43 @@ def build_clusters(bvh: BVH, max_tris: int = 64):
                 "non-contiguous"
             sub_first[i] = lo
             sub_count[i] = c
+    return sub_first, sub_count
 
-    def subtree_range(ni):
-        return int(sub_first[ni]), int(sub_count[ni])
 
-    stack = [0]
+def _cut(bvh: BVH, root: int, max_tris: int, sub_count) -> list:
+    """The nodes of the treelet cut of ``root``'s subtree: the highest
+    nodes of at most max_tris prims (or BVH leaves), left subtree first."""
+    nodes, stack = [], [root]
     while stack:
         ni = stack.pop()
-        f, c = subtree_range(ni)
-        if c <= max_tris or bvh.node_count[ni] > 0:
-            aabbs.append(np.concatenate([
-                bvh.node_min[ni], bvh.node_max[ni],
-                np.zeros(2, np.float32)]))
-            firsts.append(f)
-            counts.append(c)
+        if sub_count[ni] <= max_tris or bvh.node_count[ni] > 0:
+            nodes.append(ni)
         else:
             stack.append(bvh.node_right[ni])
             stack.append(bvh.node_left[ni])
+    return nodes
+
+
+def build_clusters(bvh: BVH, max_tris: int = 64):
+    """Cut the BVH into treelets of <= max_tris contiguous primitives.
+
+    Because build() stores leaf prims contiguously in prim_order, any
+    subtree covers a contiguous [first, first+count) range — a treelet is
+    just that range plus its AABB, so a traversal tests the treelet AABB
+    once and skips the whole triangle range on a miss.
+
+    Returns dict(aabb (C, 8) f32 [min.xyz max.xyz 0 0], first (C,) i32,
+    count (C,) i32, order (P,) i32 = prim_order).
+    """
+    sub_first, sub_count = _subtree_ranges(bvh)
+    nodes = np.asarray(_cut(bvh, 0, max_tris, sub_count), np.int64)
+    aabb = np.zeros((nodes.shape[0], 8), np.float32)
+    aabb[:, 0:3] = bvh.node_min[nodes]
+    aabb[:, 3:6] = bvh.node_max[nodes]
     return {
-        "aabb": np.asarray(aabbs, np.float32),
-        "first": np.asarray(firsts, np.int32),
-        "count": np.asarray(counts, np.int32),
+        "aabb": aabb,
+        "first": sub_first[nodes].astype(np.int32),
+        "count": sub_count[nodes].astype(np.int32),
         "order": bvh.prim_order.astype(np.int32),
     }
 
@@ -456,6 +462,54 @@ def build_block_set(bvh: BVH, tri_block: int = 256, top_size: int = 64):
         "slot_to_prim": slot_to_prim.astype(np.int32),
         "tri_block": tri_block,
         "num_blocks": C,
+    }
+
+
+def build_block_leaves(bvh: BVH, block_set, leaf_tris: int):
+    """Cut every block of ``block_set`` (build_block_set of the same bvh)
+    into leaves: the sub-treelets of at most ``leaf_tris`` triangles of the
+    block's BVH subtree, cut as build_clusters cuts the whole BVH.
+
+    A leaf is a contiguous range of its block's slots with its BVH node's
+    box.  Within a block the leaves are ascending and cover its slots
+    [0, bcnt) once.  Every leaf box lies exactly inside its block's box, and
+    holds its triangles' vertices: each is the min / max over a set of the
+    same vertex floats.  The BVH-block closest-hit queries
+    (ops.cuda_rt.closest_hit_bvh, closest_hit_bvh_after) walk a block's
+    leaves in this order.
+
+    Returns dict:
+      range  (C + 1,) i32   block b's leaves are rows range[b] .. range[b+1]
+      aabb   (L, 6) f32     [min.xyz max.xyz]
+      first  (L,) i32       first slot (block * tri_block + offset)
+      count  (L,) i32       triangles
+    """
+    if leaf_tris < 1:
+        raise ValueError(f"leaf_tris {leaf_tris} < 1")
+    sub_first, sub_count = _subtree_ranges(bvh)
+    tb = int(block_set["tri_block"])
+    blocks = _cut(bvh, 0, tb, sub_count)
+    bcnt = np.asarray(block_set["bcnt"], np.int64)
+    if len(blocks) != bcnt.shape[0] or not np.array_equal(
+            sub_count[np.asarray(blocks, np.int64)], bcnt):
+        raise ValueError("block_set was not cut from this BVH")
+    rng, nodes, first = [0], [], []
+    for b, nb in enumerate(blocks):
+        pos = 0
+        for ni in _cut(bvh, nb, leaf_tris, sub_count):
+            if sub_first[ni] - sub_first[nb] != pos:
+                raise ValueError(f"block {b}: leaves are not contiguous")
+            nodes.append(ni)
+            first.append(b * tb + pos)
+            pos += int(sub_count[ni])
+        rng.append(len(nodes))
+    nodes = np.asarray(nodes, np.int64)
+    return {
+        "range": np.asarray(rng, np.int32),
+        "aabb": np.concatenate([bvh.node_min[nodes], bvh.node_max[nodes]],
+                               axis=1),
+        "first": np.asarray(first, np.int32),
+        "count": sub_count[nodes].astype(np.int32),
     }
 
 

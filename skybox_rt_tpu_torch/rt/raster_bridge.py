@@ -56,7 +56,7 @@ from ..core.device import resolve_device
 from ..geom import cgltrace, transform
 from ..texture import mipmap
 from . import bvh as bvh_mod
-from . import intersect
+from . import intersect, tracer
 
 F32 = torch.float32
 #: treelet block size of the per-draw blocks of engine "pallas_bvh"; the JAX
@@ -136,10 +136,10 @@ _ENGINE_PREP_CACHE: dict = {}
 
 def _engine_prep(tri, engine: str, device):
     """Host acceleration-structure build for one triangle soup, cached by
-    content hash, engine and device: repeated renders of the same trace skip
-    the per-draw SAH rebuild and the upload."""
+    content hash, engine, device and leaf size: repeated renders of the
+    same trace skip the per-draw SAH rebuild and the upload."""
     device = torch.device(device)
-    key = (engine, str(device), tri.shape[0],
+    key = (engine, str(device), tri.shape[0], tracer.BVH_LEAF_TRIS,
            hashlib.sha1(np.ascontiguousarray(tri).tobytes()).hexdigest())
     hit = _ENGINE_PREP_CACHE.get(key)
     if hit is not None:
@@ -155,7 +155,9 @@ def _engine_prep(tri, engine: str, device):
         if engine == "pallas_bvh":
             from ..ops import cuda_rt
             bs = bvh_mod.build_block_set(bvh, tri_block=DRAW_TRI_BLOCK)
-            prep["blocks"] = cuda_rt.prepare_bvh_blocks(v0, e1, e2, bs)
+            prep["blocks"] = cuda_rt.prepare_bvh_blocks(
+                v0, e1, e2, bs, bvh_mod.build_block_leaves(
+                    bvh, bs, tracer.BVH_LEAF_TRIS))
         else:
             prep["stackless"] = bvh.as_stackless_arrays(device)
             prep["leaf_size"] = bvh.leaf_size

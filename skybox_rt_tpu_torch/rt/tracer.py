@@ -39,6 +39,14 @@ PALLAS_MAX_TRIS = 15000
 #: Kept at the JAX package's value only because it defines the same
 #: ``blocks`` in both packages; it has not been tuned for this card.
 BVH_TRI_BLOCK = 256
+#: most triangles of a leaf inside a block (rt.bvh.build_block_leaves): the
+#: closest-hit and next-hit-after queries test a leaf's triangles only where
+#: the ray passes its box.  Both the pallas_bvh engine and rt.raster_bridge's
+#: per-draw blocks take it.  Swept over 8, 16 and 32 on an H100
+#: (scripts/torch_rt_profile.py --leaf-tris, PERF.md): 8 and 16 give frames
+#: within noise of each other, 8 the lower closest-hit kernel time; 32 is
+#: slower.
+BVH_LEAF_TRIS = 8
 
 ENGINES = ("pallas", "pallas_bvh", "pallas_streamed", "pallas_worklist",
            "bvh", "brute")
@@ -320,7 +328,9 @@ def make_intersectors(scene: RTScene, cfg: RTConfig, device=None):
 
         block_set = bvh_mod.build_block_set(scene.bvh,
                                             tri_block=BVH_TRI_BLOCK)
-        blocks = cuda_rt.prepare_bvh_blocks(*tri, block_set)
+        blocks = cuda_rt.prepare_bvh_blocks(
+            *tri, block_set, bvh_mod.build_block_leaves(
+                scene.bvh, block_set, BVH_LEAF_TRIS))
 
         def closest(o, d, t_max=math.inf):
             tm = None if t_max is math.inf else per_ray(t_max, o)

@@ -6,8 +6,11 @@ package's Pallas kernel, the brute-force oracle and the closest-hit query.
 ``pallas_rt.closest_hit_bvh_after(..., interpret=True)`` on the check soups
 of models.scenes (a soup with an exact duplicate triangle, a coplanar grid
 whose rays meet up to eight triangles at exactly t = 1, parked rays, a per-ray
-t_max) and on a K-slot draw of the synthetic config-3 trace, the blocks
-carried over with ``interop.bvh_blocks_from_reference``.
+t_max) and on a K-slot draw of the synthetic config-3 trace.  The blocks
+carried over with ``interop.bvh_blocks_from_reference`` are held equal to the
+port's own, which add the leaf table of rt.bvh.build_block_leaves (the JAX
+package has none); the port walks its own, at every leaf size swept on the
+card.
 
 Tolerances.  K walks enumerate the same (t, prim) sequence: the same number
 of hits a ray, t to rtol 1e-5 (XLA's CPU code contracts multiply-adds, eager
@@ -29,23 +32,28 @@ from skybox_rt_tpu_torch.geom import cgltrace
 from skybox_rt_tpu_torch.models import scenes
 from skybox_rt_tpu_torch.ops import cuda_rt
 from skybox_rt_tpu_torch.rt import bvh as bvh_mod
-from skybox_rt_tpu_torch.rt import raster_bridge
+from skybox_rt_tpu_torch.rt import raster_bridge, tracer
 
 torch.set_num_threads(1)
 
 T_MIN = 1e-6
+#: the leaf sizes swept on the card (scripts/torch_rt_profile.py
+#: --leaf-tris), and 4, which splits the coplanar grid's 8-slot blocks
+LEAF_SIZES = (4, 8, 16, 32)
 
 
 def _t(a, device="cpu"):
     return None if a is None else torch.as_tensor(np.array(a), device=device)
 
 
-def _port_blocks(v0, e1, e2, tri_block, device="cpu"):
+def _port_blocks(v0, e1, e2, tri_block, device="cpu",
+                 leaf_tris=tracer.BVH_LEAF_TRIS):
     verts, faces = scenes.soup_mesh(v0, e1, e2)
-    bs = bvh_mod.build_block_set(bvh_mod.build_sah(verts, faces),
-                                 tri_block=tri_block)
-    return cuda_rt.prepare_bvh_blocks(_t(v0, device), _t(e1, device),
-                                      _t(e2, device), bs)
+    bvh = bvh_mod.build_sah(verts, faces)
+    bs = bvh_mod.build_block_set(bvh, tri_block=tri_block)
+    return cuda_rt.prepare_bvh_blocks(
+        _t(v0, device), _t(e1, device), _t(e2, device), bs,
+        bvh_mod.build_block_leaves(bvh, bs, leaf_tris))
 
 
 def _enumerate(after, R, walks):
@@ -110,9 +118,10 @@ def test_plain_matches_jax_pallas(name):
     jblocks = pallas_rt.prepare_bvh_blocks(
         jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2), jbs)
     blocks = interop.bvh_blocks_from_reference(jblocks, "cpu")
-    own = _port_blocks(v0, e1, e2, tri_block)
+    own = {lt: _port_blocks(v0, e1, e2, tri_block, leaf_tris=lt)
+           for lt in LEAF_SIZES}
     for k in ("tri", "bcnt", "s2p", "aabb"):
-        assert torch.equal(own[k], blocks[k]), k
+        assert torch.equal(own[tracer.BVH_LEAF_TRIS][k], blocks[k]), k
 
     wk = pallas_rt.bvh_worklists(
         jnp.asarray(o), jnp.asarray(d), jblocks,
@@ -120,29 +129,31 @@ def test_plain_matches_jax_pallas(name):
     want = _enumerate(lambda tlo, slo: pallas_rt.closest_hit_bvh_after(
         jblocks, wk, jnp.asarray(tlo.numpy()), jnp.asarray(slo.numpy()),
         t_min=T_MIN, interpret=True), o.shape[0], walks)
-    got = _port_walks(blocks, o, d, tm, walks)
+    for lt, leafy in own.items():
+        got = _port_walks(leafy, o, d, tm, walks)
+        assert int((got[0][1] >= 0).sum()) > 0.2 * o.shape[0]
+        assert not (got[-1][1] >= 0).any()        # the enumeration has ended
+        for k, (g, w) in enumerate(zip(got, want)):
+            # same hits a walk, t to rtol 1e-5, misses exactly as stated
+            np.testing.assert_array_equal(g[1] < 0, w[1] < 0,
+                                          err_msg=f"leaves {lt}, walk {k}")
+            hit = g[1] >= 0
+            np.testing.assert_allclose(g[2][hit], w[2][hit], rtol=1e-5)
+            assert np.isinf(g[2][~hit]).all() and (g[0][~hit] == -1).all()
+            assert not g[3][~hit].any() and not g[4][~hit].any()
+            np.testing.assert_array_equal(g[0] < 0, g[1] < 0)
+        for r, (gr, wr) in enumerate(zip(_per_ray(got), _per_ray(want))):
+            assert {p for _, p in gr} == {p for _, p in wr}, f"ray {r}"
 
-    assert int((got[0][1] >= 0).sum()) > 0.2 * o.shape[0]
-    assert not (got[-1][1] >= 0).any()        # the enumeration has ended
-    for k, (g, w) in enumerate(zip(got, want)):
-        # same hits a walk, t to rtol 1e-5, misses exactly as stated
-        np.testing.assert_array_equal(g[1] < 0, w[1] < 0, err_msg=f"walk {k}")
-        hit = g[1] >= 0
-        np.testing.assert_allclose(g[2][hit], w[2][hit], rtol=1e-5)
-        assert np.isinf(g[2][~hit]).all() and (g[0][~hit] == -1).all()
-        assert not g[3][~hit].any() and not g[4][~hit].any()
-        np.testing.assert_array_equal(g[0] < 0, g[1] < 0)
-    for r, (gr, wr) in enumerate(zip(_per_ray(got), _per_ray(want))):
-        assert {p for _, p in gr} == {p for _, p in wr}, f"ray {r}"
 
-
+@pytest.mark.parametrize("leaf_tris", LEAF_SIZES)
 @pytest.mark.parametrize("name", scenes.AFTER_CHECK_SOUPS)
-def test_plain_enumerates_every_hit_of_the_oracle(name):
+def test_plain_enumerates_every_hit_of_the_oracle(name, leaf_tris):
     """Against the float64 all-pairs oracle: every hit once, in ascending t
     (rtol 1e-5), the same prims, tied pairs both present; parked rays and
     rays bounded before the plane miss at once."""
     v0, e1, e2, tri_block, o, d, tm, walks = scenes.after_check_queries(name)
-    blocks = _port_blocks(v0, e1, e2, tri_block)
+    blocks = _port_blocks(v0, e1, e2, tri_block, leaf_tris=leaf_tris)
     got = _per_ray(_port_walks(blocks, o, d, tm, walks))
     T = _mt_all_t(o, d, v0, e1, e2)
     if tm is not None:
@@ -184,12 +195,29 @@ def test_first_walk_is_the_closest_hit_and_a_miss_feeds_back(name):
         block_order=range(blocks["num_blocks"] - 1, -1, -1))
     for g, w in zip(first, rev):
         np.testing.assert_array_equal(g, w.numpy())
-    # a miss fed back is a miss, and so is the carry (+inf, anything)
-    miss = cuda_rt.closest_hit_bvh_after(
-        _t(o), _t(d), blocks, torch.full((R,), math.inf),
-        torch.full((R,), 7, dtype=torch.int32), t_min=T_MIN)
-    assert (miss[0] == -1).all() and (miss[1] == -1).all()
-    assert torch.isinf(miss[2]).all()
+    # a miss fed back is a miss, and so is the carry (+inf, anything); such
+    # a ray is not walked at all (the kernel's early exit)
+    for s_lo in (-1, 7):
+        stats = {}
+        miss = cuda_rt.closest_hit_bvh_after_reference(
+            _t(o), _t(d), blocks, torch.full((R,), math.inf),
+            torch.full((R,), s_lo, dtype=torch.int32), _t(tm), T_MIN,
+            stats=stats)
+        assert (miss[0] == -1).all() and (miss[1] == -1).all()
+        assert torch.isinf(miss[2]).all()
+        assert not miss[3].any() and not miss[4].any()
+        assert not any(stats.values()), stats
+    # a carry of +inf on some rays: the others' next hits are unchanged
+    ended = torch.arange(R) % 2 == 0
+    tlo = torch.where(ended, math.inf, -math.inf)
+    part = cuda_rt.closest_hit_bvh_after(
+        _t(o), _t(d), blocks, tlo, torch.full((R,), -1, dtype=torch.int32),
+        t_max=_t(tm), t_min=T_MIN)
+    for g, w in zip(part, first):
+        np.testing.assert_array_equal(g[~ended].numpy(), w[~ended.numpy()])
+    slot, prim, t, u, v = (x[ended] for x in part)
+    assert (slot == -1).all() and (prim == -1).all() and torch.isinf(t).all()
+    assert not u.any() and not v.any()
     with pytest.raises(ValueError, match="carry"):
         cuda_rt.closest_hit_bvh_after(
             _t(o), _t(d), blocks, torch.zeros(R), torch.zeros(R))
@@ -236,14 +264,18 @@ def test_plain_matches_jax_on_a_trace_draw():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("leaf_tris", LEAF_SIZES)
 @pytest.mark.parametrize("name", scenes.AFTER_CHECK_SOUPS)
-def test_cuda_kernel_matches_plain(name):
+def test_cuda_kernel_matches_plain(name, leaf_tris):
+    """Every walk, past the end of every ray's list, bit-equal to the plain
+    version at every leaf size."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no interpret mode")
     v0, e1, e2, tri_block, o, d, tm, walks = scenes.after_check_queries(name)
-    blocks = _port_blocks(v0, e1, e2, tri_block, "cuda")
+    blocks = _port_blocks(v0, e1, e2, tri_block, "cuda", leaf_tris)
     got = _port_walks(blocks, o, d, tm, walks, "cuda")
-    want = _port_walks(_port_blocks(v0, e1, e2, tri_block), o, d, tm, walks)
+    want = _port_walks(_port_blocks(v0, e1, e2, tri_block,
+                                    leaf_tris=leaf_tris), o, d, tm, walks)
     for g, w in zip(got, want):
         for a, b in zip(g, w):
             np.testing.assert_array_equal(a, b)

@@ -6,7 +6,10 @@ held to ``pallas_rt.closest_hit_bvh`` / ``any_hit_bvh`` run as the JAX
 package's own tests run them on the CPU (``interpret=True``), on the scenes
 of tests/test_pallas_rt.py (multi-sphere, tri_block 32 and 16, per-ray t_max,
 parked rays, scalar and per-ray any-hit t_max), the blocks carried over with
-``interop.bvh_blocks_from_reference``.
+``interop.bvh_blocks_from_reference`` (the JAX package has no leaf table,
+so the closest-hit queries run on the port's own blocks, held equal to the
+carried ones, with the leaves of rt.bvh.build_block_leaves at every leaf size
+swept on the card).
 
 Tolerances.  Miss masks: equal.  t: rtol 1e-5.  u, v: atol 1e-4 where the
 prims agree: XLA's CPU code contracts multiply-adds and eager torch does not,
@@ -30,22 +33,26 @@ from skybox_rt_tpu_torch import interop
 from skybox_rt_tpu_torch.models import scenes
 from skybox_rt_tpu_torch.ops import cuda_rt
 from skybox_rt_tpu_torch.rt import bvh as bvh_mod
-from skybox_rt_tpu_torch.rt import intersect
+from skybox_rt_tpu_torch.rt import intersect, tracer
 
 # small tensors: intra-op threads only contend with the other test workers
 torch.set_num_threads(1)
 
 SCENES = scenes.BVH_CHECK_SCENES
+#: the leaf sizes swept on the card (scripts/torch_rt_profile.py
+#: --leaf-tris), and 4, which splits the 16-slot blocks in four
+LEAF_SIZES = (4, 8, 16, 32)
 
 
-def _port_blocks(name, device="cpu"):
+def _port_blocks(name, device="cpu", leaf_tris=tracer.BVH_LEAF_TRIS):
     """(tri arrays, blocks, queries) of a scene, built by the port alone."""
     verts, faces, tri_block, queries = scenes.bvh_check_queries(name)
     tri = intersect.triangle_arrays(torch.as_tensor(verts, device=device),
                                     torch.as_tensor(faces, device=device))
-    bs = bvh_mod.build_block_set(bvh_mod.build(verts, faces),
-                                 tri_block=tri_block)
-    return tri, cuda_rt.prepare_bvh_blocks(*tri, bs), queries
+    bvh = bvh_mod.build(verts, faces)
+    bs = bvh_mod.build_block_set(bvh, tri_block=tri_block)
+    return tri, cuda_rt.prepare_bvh_blocks(
+        *tri, bs, bvh_mod.build_block_leaves(bvh, bs, leaf_tris)), queries
 
 
 def _t(a, device="cpu"):
@@ -69,11 +76,13 @@ def test_plain_matches_jax_pallas(name):
     blocks = interop.bvh_blocks_from_reference(jblocks, "cpu")
     if name == "multi6_tb16":
         assert len(blocks["levels"]) >= 2 and blocks["num_blocks"] > 64
-    # the blocks carried over equal the ones the port builds itself
-    _, own, _ = _port_blocks(name)
+    # the blocks carried over equal the ones the port builds itself, which
+    # add the leaf table
+    own = {lt: _port_blocks(name, leaf_tris=lt)[1] for lt in LEAF_SIZES}
     for k in ("tri", "bcnt", "s2p", "aabb"):
-        assert torch.equal(own[k], blocks[k]), k
-    assert own["level_counts"] == blocks["level_counts"]
+        assert torch.equal(own[tracer.BVH_LEAF_TRIS][k], blocks[k]), k
+    assert own[tracer.BVH_LEAF_TRIS]["level_counts"] == blocks["level_counts"]
+    assert blocks["leaf_table"] is None
 
     for kind, oq, dq, tm in queries:
         if kind == "any":
@@ -92,28 +101,30 @@ def test_plain_matches_jax_pallas(name):
         p_w, t_w, u_w, v_w = (np.asarray(x) for x in pallas_rt.closest_hit_bvh(
             jnp.asarray(oq), jnp.asarray(dq), jblocks,
             t_max=None if tm is None else jnp.asarray(tm), interpret=True))
-        p, t, u, v = (x.numpy() for x in cuda_rt.closest_hit_bvh(
-            _t(oq), _t(dq), blocks, t_max=_t(tm)))
-        assert p.dtype == np.int32 and t.dtype == np.float32
-        np.testing.assert_array_equal(p < 0, p_w < 0)
-        hits = p >= 0
-        # a bounded query (t_max 2.5 from |o| ~ 3) hits rarely
-        assert hits.mean() > (0.2 if tm is None else 0.01)
-        assert np.isinf(t[~hits]).all() and not u[~hits].any()
-        np.testing.assert_allclose(t[hits], t_w[hits], rtol=1e-5)
-        same = hits & (p == p_w)
-        np.testing.assert_allclose(u[same], u_w[same], atol=1e-4)
-        np.testing.assert_allclose(v[same], v_w[same], atol=1e-4)
-        ties = hits & (p != p_w)
-        assert ties.sum() < 0.01 * hits.sum()
-        np.testing.assert_allclose(t[ties], t_w[ties], rtol=1e-5)
+        for lt, leafy in own.items():
+            p, t, u, v = (x.numpy() for x in cuda_rt.closest_hit_bvh(
+                _t(oq), _t(dq), leafy, t_max=_t(tm)))
+            assert p.dtype == np.int32 and t.dtype == np.float32
+            np.testing.assert_array_equal(p < 0, p_w < 0, err_msg=f"{lt}")
+            hits = p >= 0
+            # a bounded query (t_max 2.5 from |o| ~ 3) hits rarely
+            assert hits.mean() > (0.2 if tm is None else 0.01)
+            assert np.isinf(t[~hits]).all() and not u[~hits].any()
+            np.testing.assert_allclose(t[hits], t_w[hits], rtol=1e-5)
+            same = hits & (p == p_w)
+            np.testing.assert_allclose(u[same], u_w[same], atol=1e-4)
+            np.testing.assert_allclose(v[same], v_w[same], atol=1e-4)
+            ties = hits & (p != p_w)
+            assert ties.sum() < 0.01 * hits.sum()
+            np.testing.assert_allclose(t[ties], t_w[ties], rtol=1e-5)
 
 
+@pytest.mark.parametrize("leaf_tris", LEAF_SIZES)
 @pytest.mark.parametrize("name", sorted(SCENES))
-def test_plain_matches_bruteforce_and_any_block_order(name):
+def test_plain_matches_bruteforce_and_any_block_order(name, leaf_tris):
     """The plain versions against the port's all-pairs oracle (same
     arithmetic, so exactly equal), and over the blocks in reverse."""
-    tri, blocks, queries = _port_blocks(name)
+    tri, blocks, queries = _port_blocks(name, leaf_tris=leaf_tris)
     rev = range(blocks["num_blocks"] - 1, -1, -1)
     for kind, oq, dq, tm in queries:
         oq, dq = _t(oq), _t(dq)
@@ -136,7 +147,15 @@ def test_plain_matches_bruteforce_and_any_block_order(name):
             assert bool((got[0][park] < 0).all())
 
 
-def _duplicate_blocks():
+def _duplicate_leaves():
+    """A leaf a triangle of :func:`_duplicate_blocks`."""
+    box_far, box_a = [0, 0, -1, 1, 1, -1], [0, 0, 0, 1, 1, 0]
+    return {"range": np.array([0, 2, 3]),
+            "aabb": np.array([box_far, box_a, box_a], np.float32),
+            "first": np.array([0, 1, 2]), "count": np.array([1, 1, 1])}
+
+
+def _duplicate_blocks(leaves=None):
     """Two blocks of two slots; the same triangle sits at slot 1 (block 0)
     and slot 2 (block 1), a farther one at slot 0."""
     tri_a = [0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
@@ -145,13 +164,13 @@ def _duplicate_blocks():
     box = np.array([[0, 0, -1, 1, 1, 0], [0, 0, 0, 1, 1, 0]], np.float32)
     return cuda_rt.pack_blocks(rows, np.array([2, 1], np.int32),
                                np.array([7, 5, 3, -1], np.int32), [box],
-                               2, 8, "cpu")
+                               2, 8, "cpu", leaves=leaves)
 
 
 def test_tie_rule_lowest_slot_wins():
     """Two coplanar duplicate triangles: the lower slot wins, whichever way
     the blocks are walked; the prim is the slot's through slot_to_prim."""
-    blocks = _duplicate_blocks()
+    blocks = _duplicate_blocks(_duplicate_leaves())
     o = torch.tensor([[0.25, 0.25, 1.0], [0.25, 0.25, 1.0]])
     d = torch.tensor([[0.0, 0.0, -1.0], [0.0, 0.0, 1.0]])
     for order in (None, (1, 0)):
@@ -190,12 +209,32 @@ def test_wrappers_reject_bad_inputs():
             np.zeros(1, np.int32),
             [np.zeros((1, 6), np.float32)] * (cuda_rt.MAX_LEVELS + 1),
             1, 1, "cpu")
+    # no leaf table: the closest-hit queries refuse the blocks on any device,
+    # the any-hit query (whole blocks) takes them
+    bare = _duplicate_blocks()
+    o2 = torch.tensor([[0.25, 0.25, 1.0]])
+    d2 = torch.tensor([[0.0, 0.0, -1.0]])
+    with pytest.raises(ValueError, match="leaf table"):
+        cuda_rt.closest_hit_bvh(o2, d2, bare)
+    with pytest.raises(ValueError, match="leaf table"):
+        cuda_rt.closest_hit_bvh_after(o2, d2, bare, torch.zeros(1),
+                                      torch.zeros(1, dtype=torch.int32))
+    assert cuda_rt.any_hit_bvh(o2, d2, bare, t_max=2.0).tolist() == [True]
+    # leaves that do not tile their blocks' slots in ascending order
+    for bad in ({"first": np.array([1, 0, 2])},          # descending
+                {"count": np.array([1, 2, 1])},          # past the block
+                {"range": np.array([0, 1, 3])},          # slot 1 left out
+                {"aabb": np.zeros((2, 6), np.float32)}):
+        with pytest.raises(ValueError):
+            _duplicate_blocks({**_duplicate_leaves(), **bad})
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_on_card():
+@pytest.mark.parametrize("leaf_tris", LEAF_SIZES)
+def test_kernels_match_plain_on_card(leaf_tris):
     """Kernel against plain version on the card: every output equal bit for
-    bit (same operations in the same order, no fused multiply-add)."""
+    bit (same operations in the same order, no fused multiply-add), at every
+    leaf size."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU build")
     dev = torch.device("cuda")
@@ -203,7 +242,8 @@ def test_kernels_match_plain_on_card():
     with open(_build.build() + ".log") as f:
         print(f.read())
     for name in sorted(SCENES):
-        _, blocks, queries = _port_blocks(name, device=dev)
+        _, blocks, queries = _port_blocks(name, device=dev,
+                                          leaf_tris=leaf_tris)
         for kind, oq, dq, tm in queries:
             oq, dq, tm = _t(oq, dev), _t(dq, dev), _t(tm, dev)
             if kind == "any":
