@@ -31,16 +31,15 @@ exits non-zero, and only a run where every phase passed prints the final
                pass 1 at 256x256 and 1024x1024, and the whole 256x256 frame
   7. rt_kernel_vs_plain — the closest-hit and any-hit BVH kernels against
                their plain torch versions, bit for bit: the small check
-               scenes whole (the closest hit at leaf sizes 4, 8, 16 and
-               32), then the 184,832-triangle sphere field at the shipped
-               leaf size on 65,536 rays of each of the six launches of the
-               real 1024x1024 frame (primary, bounce 1, bounce 2, each with
-               its shadow launch; bounce launches hold parked rays),
-               captured from the port's trace_rays, and on the whole
-               primary and primary-shadow launches.  Tests a ray of each
-               launch: the closest hit's at the leaves and
-               ``block_tri_tests_per_ray``, had every entered block been
-               tested whole
+               scenes whole at leaf sizes 1, 2, 4, 8, 16 and 32, then
+               the 184,832-triangle sphere field at the shipped leaf size on
+               65,536 rays of each of the six launches of the real
+               1024x1024 frame (primary, bounce 1, bounce 2, each with its
+               shadow launch; bounce launches hold parked rays), captured
+               from the port's trace_rays, and on the whole primary and
+               primary-shadow launches.  Tests a ray of each launch at the
+               leaves, and ``block_tri_tests_per_ray``, had every entered
+               block been tested whole
   8. rt_frame_256 — make_frame_fn at 256x256, 2 bounces, shadows, on the
                default device against the committed JAX golden
                (data/rt_northstar_256.npz, rendered from the same rays):
@@ -60,10 +59,12 @@ exits non-zero, and only a run where every phase passed prints the final
                and flat closest-hit kernels against their plain torch
                versions, bit for bit (``rays_differ`` must be 0): the small
                check scenes whole (and one with more clusters than the
-               shared-memory stage holds), then the 12,032-triangle sphere
-               field on 65,536 rays of each of the six launches of its real
-               1024x1024 frame, and on the whole primary and primary-shadow
-               launches.  On the same rays the clustered kernels against the
+               shared-memory stage holds) at cluster group sizes 1, 4, 8
+               and 16, then the 12,032-triangle sphere field at the shipped
+               group size on 65,536 rays of each of the six launches of its
+               real 1024x1024 frame, and on the whole primary and
+               primary-shadow launches, with group and cluster slab tests a
+               ray.  On the same rays the clustered kernels against the
                flat one: occlusion and miss masks equal, every output equal
                where the prims agree, t within rtol 1e-5 where they do not
                (ties across clusters, under 1 % of the hits)
@@ -81,8 +82,9 @@ exits non-zero, and only a run where every phase passed prints the final
                through no engine), and its entry says so: ``tracer_launches``
                0, ``launched_by``
  14. rt_small_timing — CUDA events, median of 20 (the flat kernel: of 5):
-               each of the six launches' kernels alone, the flat kernel on the
-               primary launch, the plain versions on the samples, the whole
+               each of the six launches' kernels alone (around the call and
+               as a CUDA graph's replay), the flat kernel on the primary
+               launch, the plain versions on the samples, the whole
                1024x1024 and 256x256 frames
 
   15. diff_vis_vs_plain — the differentiable pipeline's hard-mode visibility
@@ -131,8 +133,8 @@ exits non-zero, and only a run where every phase passed prints the final
 
   20. rt_after_vs_plain — the next-hit-after kernel against its plain torch
                version, bit for bit (``rays_differ`` must be 0): the check
-               soups whole at leaf sizes 4, 8, 16 and 32 (an exact duplicate
-               triangle, a coplanar grid whose rays meet up to eight
+               soups whole at leaf sizes 1, 2, 4, 8, 16 and 32 (an exact
+               duplicate triangle, a coplanar grid whose rays meet up to eight
                triangles at exactly t = 1, parked rays, a per-ray t_max),
                every walk fed from the one before; then every walk of every
                K-slot draw of the real 1024x1024 config-3 frame on a
@@ -211,6 +213,8 @@ exits non-zero, and only a run where every phase passed prints the final
                blackscholes on 4,000,000 options; host milliseconds a draw
                of the native and the numpy binning engines (median of 5) on
                synth_draw3d at 256x256 and 1024x1024
+  29. total  — the script's seconds (every phase line carries ``at_s``, the
+               seconds since the script started)
 
 The ``kernels`` line gives each kernel's time beside its bound, both terms
 of it: ``bound_bytes_ms`` (inputs read once, outputs written once; holds
@@ -220,10 +224,10 @@ block size, leaf size or cluster table).  The ray queries' ``ms`` and
 ``bound_ms`` are those of the primary launch (the any-hit kernels': the
 primary shadow launch); ``launch_ms``, ``frame_ms`` and ``frame_bound_ms``
 cover the three launches of a frame; ``graph_ms`` and ``frame_graph_ms``
-time the BVH-block launches as CUDA graph replays, without the host's work
-around the call.  ``max_abs_err`` is the largest |kernel - plain| over
-every output of the comparison run (measured; a run that prints the line
-measured 0, since any difference raises), and the ray queries add
+time the BVH-block and clustered launches as CUDA graph replays, without
+the host's work around the call.  ``max_abs_err`` is the largest |kernel -
+plain| over every output of the comparison run (measured; a run that prints
+the line measured 0, since any difference raises), and the ray queries add
 ``rays_differ`` or ``rays_not_bit_equal``, the count of rays behind it.
 The training path's two entries give the kernel on the 1024x1024 step's
 tensors; ``launches`` are those of the ten SGD steps.  ``diff_accumulate``'s
@@ -292,18 +296,25 @@ RASTER_COVERED_INT_OPS = 31
 # slab test (6 subtracts, 6 multiplies, 12 min/max, 1 compare)
 MT_OPS = 53
 SLAB_OPS = 25
-# the leaf sizes (rt.tracer.BVH_LEAF_TRIS) the closest-hit and next-hit-after
-# kernels are held to their plain versions at on the check scenes
-LEAF_SWEEP = (4, 8, 16, 32)
+# the leaf sizes (rt.tracer.BVH_LEAF_TRIS) the BVH-block kernels are held to
+# their plain versions at on the check scenes
+LEAF_SWEEP = (1, 2, 4, 8, 16, 32)
+# the cluster group sizes (ops.cuda_rt.CLUSTER_GROUP) the clustered kernels
+# are held to their plain versions at on the check scenes
+GROUP_SWEEP = (1, 4, 8, 16)
 # most walks of a next-hit-after enumeration run past the end of its lists
 MAX_WALKS = 64
 RT_SAMPLE = 65536
 RT_SIZE = 1024         # the full-width frame
+T0 = time.perf_counter()
 
 
 def phase(name, **fields):
+    """Print one phase's line, with the script's seconds so far."""
     torch.cuda.synchronize()        # a fault in the phase surfaces here
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    print(json.dumps({"phase": name, **fields,
+                      "at_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def nvidia_smi() -> str:
@@ -376,24 +387,21 @@ def bound(bytes_moved: int, float_ops: int, int_ops: int = 0) -> dict:
 
 
 def walk_ops(stats) -> float:
-    """Operations of a closest-hit or next-hit-after walk, counted by its
-    plain version: the triangle tests of the leaves entered, and a slab test
-    for every entered block and every leaf of one (the pyramid's upper
+    """Operations of a walk of the BVH-block kernels, counted by its plain
+    version: the triangle tests of the leaves entered, and a slab test for
+    every entered block and every leaf of one it tested (the pyramid's upper
     levels and the blocks culled are left out: the count is a floor)."""
     return (stats.get("tri_tests", 0) * MT_OPS
             + (stats.get("blocks_entered", 0) + stats.get("slab_tests", 0))
             * SLAB_OPS)
 
 
-def tests_per_ray(kind, stats, rays) -> dict:
-    """A query's tests a ray from its plain version's counts: for the any
-    hit the block tests and triangle tests of whole blocks; for the closest
-    hit and next hit after the leaves' tests, and beside them
+def tests_per_ray(stats, rays) -> dict:
+    """A walk's tests a ray from its plain version's counts: the leaves'
+    slab tests and triangle tests, and beside them
     ``block_tri_tests_per_ray``, the triangle tests had every entered block
-    been tested whole (the walk before the leaf level)."""
-    if kind == "any":
-        return {"tri_tests_per_ray": stats["tri_tests"] / rays,
-                "blocks_entered_per_ray": stats["slab_pass"] / rays}
+    been tested whole (the walk before the leaf level; the any hit's up to
+    its first hit)."""
     return {k + "_per_ray": stats.get(k, 0) / rays
             for k in ("tri_tests", "slab_tests", "slab_pass",
                       "blocks_entered", "block_tri_tests")}
@@ -551,8 +559,7 @@ def rt_phases(dev, card) -> list:
                                  f"plain version on {int(inexact.sum())} rays")
         return err, 0, got, plain_s
 
-    # 7a. the small check scenes, whole, the closest-hit query at every leaf
-    # size of the sweep
+    # 7a. the small check scenes, whole, at every leaf size of the sweep
     err, inexact, cases = 0.0, 0, 0
     for name in sorted(scenes.BVH_CHECK_SCENES):
         verts, faces, tri_block, queries = scenes.bvh_check_queries(name)
@@ -560,8 +567,6 @@ def rt_phases(dev, card) -> list:
         for lt in LEAF_SWEEP:
             blocks = make_blocks(verts, faces, bvh, tri_block, lt)
             for kind, o, d, tm in queries:
-                if kind == "any" and lt != tracer.BVH_LEAF_TRIS:
-                    continue        # #3 reads no leaves
                 e, n, _, _ = compare(
                     kind, on_card(o), on_card(d),
                     on_card(tm) if kind == "closest" else
@@ -593,17 +598,17 @@ def rt_phases(dev, card) -> list:
         raise AssertionError("make_frame_fn did not default to the card")
 
     def launch_bound(kind, o, d, tm, stats, scale=1.0):
-        """Bound of one launch: rays, records, boxes (and the closest hit's
-        leaf table, the any hit's counts) read once, the outputs (prim, t,
-        u, v, or one occlusion byte a ray) written once, against the tests
-        the plain version counted (times ``scale``, a sample's share)."""
+        """Bound of one launch: rays, records, boxes and the leaf table (and
+        the closest hit's slot -> prim) read once, the outputs (prim, t, u,
+        v, or one occlusion byte a ray) written once, against the tests the
+        plain version counted (times ``scale``, a sample's share)."""
         R = o.shape[0]
-        moved = nbytes(o, d, tm, blocks["tri"], blocks["aabb"])
+        moved = nbytes(o, d, tm, blocks["tri"], blocks["aabb"],
+                       blocks["leaf_range"], blocks["leaf_table"])
         if kind == "any":
-            return bound(moved + nbytes(blocks["bcnt"]) + R, scale * (
-                stats["tri_tests"] * MT_OPS + stats["slab_pass"] * SLAB_OPS))
-        moved += 16 * R + nbytes(blocks["s2p"], blocks["leaf_range"],
-                                 blocks["leaf_table"])
+            moved += R
+        else:
+            moved += 16 * R + nbytes(blocks["s2p"])
         return bound(moved, scale * walk_ops(stats))
 
     # 7b. the six launches of the real frame, captured from trace_rays
@@ -625,7 +630,7 @@ def rt_phases(dev, card) -> list:
             "kind": kind, "launch_rays": R, "sample_rays": os_.shape[0],
             "parked_in_sample": parked, "hits_in_sample": int(found.sum()),
             "max_abs_err": e, "rays_not_bit_equal": n,
-            **tests_per_ray(kind, stats, os_.shape[0]),
+            **tests_per_ray(stats, os_.shape[0]),
             "plain_ms_sample": plain_s * 1e3,
             # the sample's counts scaled to the launch's rays
             "bound": launch_bound(kind, o, d, tm, stats, R / os_.shape[0])}
@@ -651,7 +656,7 @@ def rt_phases(dev, card) -> list:
             **launch_bound(kind, o, d, tm, stats),
             "library_ms": None,     # no single PyTorch call computes this
             "rays": o.shape[0], "rays_not_bit_equal": n,
-            **tests_per_ray(kind, stats, o.shape[0])})
+            **tests_per_ray(stats, o.shape[0])})
         err = max(err, e)
     phase("rt_kernel_vs_plain", small=small, triangles=int(faces.shape[0]),
           blocks=blocks["num_blocks"], pyramid=list(blocks["level_counts"]),
@@ -803,11 +808,11 @@ def small_phases(dev, card) -> list:
             return a
         return torch.as_tensor(a, device=dev)
 
-    def pack(verts, faces, bvh, max_tris):
+    def pack(verts, faces, bvh, max_tris, group=None):
         tri = intersect.triangle_arrays(on_card(verts),
                                         on_card(np.asarray(faces, np.int64)))
         clusters = cuda_rt.prepare_clusters(
-            *tri, bvh_mod.build_clusters(bvh, max_tris))
+            *tri, bvh_mod.build_clusters(bvh, max_tris), group=group)
         return clusters, cuda_rt.pack_records(*tri)
 
     def compare(kind, o, d, tm, clusters, flat, stats=None, flat_plain=True):
@@ -853,32 +858,39 @@ def small_phases(dev, card) -> list:
         out["t_differ_from_flat"] = int((got[1] != got_flat[1]).sum())
         return out, got
 
-    # 11a. the small check scenes, whole
+    # 11a. the small check scenes, whole, at every cluster group size of the
+    # sweep
     small = {"cases": 0, "rays_differ": 0, "flat_rays_differ": 0,
-             "prims_tied_with_flat": 0}
+             "prims_tied_with_flat": 0, "group_sizes": list(GROUP_SWEEP)}
     for name in sorted(scenes.CLUSTER_CHECK_SCENES):
         verts, faces, max_tris, queries = scenes.cluster_check_queries(name)
-        clusters, flat = pack(verts, faces, bvh_mod.build(verts, faces),
-                              max_tris)
-        for _, kind, o, d, tm in queries:
-            out, _ = compare(kind, on_card(o), on_card(d), on_card(tm),
-                             clusters, flat)
-            small["cases"] += 1
-            for k in ("rays_differ", "flat_rays_differ",
-                      "prims_tied_with_flat"):
-                small[k] += out.get(k, 0)
+        bvh = bvh_mod.build(verts, faces)
+        for group in GROUP_SWEEP:
+            clusters, flat = pack(verts, faces, bvh, max_tris, group)
+            for _, kind, o, d, tm in queries:
+                out, _ = compare(kind, on_card(o), on_card(d), on_card(tm),
+                                 clusters, flat,
+                                 flat_plain=group == cuda_rt.CLUSTER_GROUP)
+                small["cases"] += 1
+                for k in ("rays_differ", "flat_rays_differ",
+                          "prims_tied_with_flat"):
+                    small[k] += out.get(k, 0)
     # more clusters than the shared-memory stage holds (the tables stay in
     # global memory); rays of one octant, so the plain version walks one row
     verts, faces = scenes.icosphere(subdiv=4)
-    clusters, flat = pack(verts, faces, bvh_mod.build(verts, faces), 4)
-    if clusters["num_clusters"] <= 768:
-        raise AssertionError("the unstaged case must exceed 768 clusters")
+    bvh = bvh_mod.build(verts, faces)
     o, d = scenes.aimed_rays(3000, seed=9)
     o, d = on_card(np.abs(o)), on_card(-np.abs(d))
-    for kind, tm in (("closest", None), ("any", 3.0)):
-        out, _ = compare(kind, o, d, tm, clusters, flat)
-        small["cases"] += 1
-        small["rays_differ"] += out["rays_differ"]
+    for group in GROUP_SWEEP:
+        clusters, flat = pack(verts, faces, bvh, 4, group)
+        if clusters["num_clusters"] + clusters["num_groups"] <= 768:
+            raise AssertionError("the unstaged case must exceed 768 clusters "
+                                 "and groups")
+        for kind, tm in (("closest", None), ("any", 3.0)):
+            out, _ = compare(kind, o, d, tm, clusters, flat,
+                             flat_plain=False)
+            small["cases"] += 1
+            small["rays_differ"] += out["rays_differ"]
     small["unstaged_clusters"] = clusters["num_clusters"]
 
     # the full-width small scene, built once for every later phase
@@ -902,17 +914,34 @@ def small_phases(dev, card) -> list:
 
     def launch_bounds(kind, o, d, tm, tri_tests, slab_tests):
         """Bounds of one launch of the clustered and of the flat kernel:
-        rays, records and tables read once, the outputs (prim, t, u, v, or
-        one occlusion byte a ray) written once, against the tests the plain
-        version counted (flat: every triangle for every ray)."""
+        rays, records and tables (the closest hit's group tables too) read
+        once, the outputs (prim, t, u, v, or one occlusion byte a ray)
+        written once, against the tests the plain version counted (slab
+        tests of groups and clusters; flat: every triangle for every
+        ray)."""
         R = o.shape[0]
         written = R if kind == "any" else 16 * R
         moved = nbytes(o, d, tm, clusters["tri"], clusters["table"],
                        clusters["visit"]) + written
         if kind == "closest":
-            moved += nbytes(clusters["order"])
+            moved += nbytes(clusters["order"], clusters["group_table"],
+                            clusters["group_visit"])
         return (bound(moved, tri_tests * MT_OPS + slab_tests * SLAB_OPS),
                 bound(nbytes(o, d, tm, flat) + 16 * R, R * P * MT_OPS))
+
+    def slab_tests(stats):
+        return stats["slab_tests"] + stats.get("group_slab_tests", 0)
+
+    def per_ray(stats, rays):
+        """Tests a ray: the groups' (closest hit), the clusters', the
+        triangles'."""
+        return {"group_slab_tests_per_ray":
+                    stats.get("group_slab_tests", 0) / rays,
+                "groups_entered_per_ray":
+                    stats.get("groups_entered", 0) / rays,
+                "slab_tests_per_ray": stats["slab_tests"] / rays,
+                "clusters_entered_per_ray": stats["slab_pass"] / rays,
+                "tri_tests_per_ray": stats["tri_tests"] / rays}
 
     # 11b. the six launches of the real frame, captured from trace_rays
     launches = capture_launches(
@@ -933,12 +962,10 @@ def small_phases(dev, card) -> list:
             "kind": kind, "launch_rays": R, "sample_rays": n,
             "parked_in_sample": int((os_[:, 0] > 1e7).sum()),
             "hits_in_sample": int(found.sum()), **out,
-            "slab_tests_per_ray": stats["slab_tests"] / n,
-            "clusters_entered_per_ray": stats["slab_pass"] / n,
-            "tri_tests_per_ray": stats["tri_tests"] / n,
+            **per_ray(stats, n),
             # the sample's counts scaled to the launch's rays
             "bound": launch_bounds(kind, o, d, tm, stats["tri_tests"] * R / n,
-                                   stats["slab_tests"] * R / n)[0]}
+                                   slab_tests(stats) * R / n)[0]}
     for name in ("bounce1", "bounce1_shadow"):
         if classes[name]["parked_in_sample"] == 0:
             raise AssertionError(f"{name}: no parked ray in the sample")
@@ -956,7 +983,7 @@ def small_phases(dev, card) -> list:
                          flat_plain=kind == "closest")
         R = o.shape[0]
         mine, flat_bound = launch_bounds(kind, o, d, tm, stats["tri_tests"],
-                                         stats["slab_tests"])
+                                         slab_tests(stats))
         common = {"route": "cuda",
                   "source": "skybox_rt_tpu_torch/csrc/rt_clustered.cu",
                   "launches": None, "ms": None,
@@ -967,9 +994,7 @@ def small_phases(dev, card) -> list:
             "replaces": f"skybox_rt_tpu/ops/pallas_rt.py:{src_line}",
             **common, "max_abs_err": out["max_abs_err"],
             "plain_ms": out["plain_ms"], **mine,
-            "rays_differ": out["rays_differ"],
-            "slab_tests_per_ray": stats["slab_tests"] / R,
-            "tri_tests_per_ray": stats["tri_tests"] / R})
+            "rays_differ": out["rays_differ"], **per_ray(stats, R)})
         if kind == "closest":
             flat_entry = {
                 "name": "rt_closest_hit_flat",
@@ -981,7 +1006,9 @@ def small_phases(dev, card) -> list:
                 "prims_tied_with_clustered": out["prims_tied_with_flat"]}
     entries.append(flat_entry)
     phase("rt_clustered_vs_plain", small=small, triangles=P, clusters=C,
-          classes=classes, equal=True,
+          groups=clusters["num_groups"],
+          cluster_group=clusters["cluster_group"], classes=classes,
+          equal=True,
           rays_differ=small["rays_differ"] + small["flat_rays_differ"]
           + sum(c["rays_differ"] + c["flat_rays_differ"]
                 for c in classes.values())
@@ -1072,22 +1099,29 @@ def small_phases(dev, card) -> list:
     timing = {}
     for name, (kind, o, d, tm) in zip(LAUNCH_NAMES, launches):
         if kind == "any":
-            ms = median_ms(lambda: cuda_rt.any_hit_clustered(
-                o, d, clusters, t_max=tm))
+            def query():
+                return cuda_rt.any_hit_clustered(o, d, clusters, t_max=tm)
         else:
-            ms = median_ms(lambda: cuda_rt.closest_hit_clustered(
-                o, d, clusters))
-        timing[name] = {"kernel_ms": ms, "rays": o.shape[0],
+            def query():
+                return cuda_rt.closest_hit_clustered(o, d, clusters)
+        ms = median_ms(query)
+        cls = classes[name]
+        timing[name] = {"kernel_ms": ms, "graph_ms": graph_ms(query),
+                        "rays": o.shape[0],
                         "mrays_per_s": o.shape[0] / ms / 1e3,
-                        "plain_ms_sample": classes[name]["plain_ms"],
-                        "flat_plain_ms_sample":
-                            classes[name]["flat_plain_ms"]}
+                        "plain_ms_sample": cls["plain_ms"],
+                        "flat_plain_ms_sample": cls["flat_plain_ms"],
+                        "bound_ms": cls["bound"]["bound_ms"],
+                        **{k: v for k, v in cls.items()
+                           if k.endswith("_per_ray")}}
     for entry, first in zip(entries[:2], ("primary", "primary_shadow")):
         mine = [n for n in LAUNCH_NAMES
                 if classes[n]["kind"] == classes[first]["kind"]]
         entry["ms"] = timing[first]["kernel_ms"]
         entry["launch_ms"] = {n: timing[n]["kernel_ms"] for n in mine}
         entry["frame_ms"] = sum(timing[n]["kernel_ms"] for n in mine)
+        entry["graph_ms"] = timing[first]["graph_ms"]
+        entry["frame_graph_ms"] = sum(timing[n]["graph_ms"] for n in mine)
         entry["frame_bound_ms"] = sum(classes[n]["bound"]["bound_ms"]
                                       for n in mine)
     entries[2]["ms"] = median_ms(
@@ -1812,7 +1846,7 @@ def config3_phases(dev, card) -> list:
         "library_ms": None,     # no single PyTorch call computes this
         "rays": N * N, "rays_differ": after_bad,
         "draw": meta["draw_index"], "triangles": meta["P"],
-        **tests_per_ray("closest", st0, N * N),
+        **tests_per_ray(st0, N * N),
         "frame_bound_ms": frame_bound}
 
     # 23. rt.diff on the card: forward and backward, against the CPU run of
@@ -2695,6 +2729,7 @@ def main() -> int:
                   + diff_phases(dev, card) + config3_phases(dev, card)
                   + apps_phases(dev, card))
 
+    phase("total", seconds=time.perf_counter() - T0)
     print(card)
     p256 = timings["pass1_256"]
     print(json.dumps({"kernels": [{

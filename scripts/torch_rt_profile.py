@@ -4,6 +4,7 @@
     python3 scripts/torch_rt_profile.py --scene small
     python3 scripts/torch_rt_profile.py --tri-block 16 32 64 128
     python3 scripts/torch_rt_profile.py --leaf-tris 8 16 32 [--scene config3]
+    python3 scripts/torch_rt_profile.py --scene small --cluster-group 4 8 16
     python3 scripts/torch_rt_profile.py --build-times
     python3 scripts/torch_rt_profile.py --scene small --engine pallas_worklist
     python3 scripts/torch_rt_profile.py --scene config3 [--size 512]
@@ -51,6 +52,17 @@ of every next-hit-after walk and closest-hit launch of the frame at
 ``--size`` (summed), of the whole frame, and the largest difference from the
 first size's image.  The module constant is set for the run and restored.
 
+``--cluster-group SIZES`` (with ``--scene small``) instead sweeps the
+clusters a group of the clustered closest-hit query holds,
+ops.cuda_rt.CLUSTER_GROUP: for each size (a size may be given twice) the
+group count, the group and cluster slab tests and the triangle tests a ray
+of the primary launch (its plain version's counts on 65,536 of its rays),
+the milliseconds of the frame's three closest-hit launches (each alone, CUDA
+events and CUDA graph replays) and of the whole frame, and the largest
+difference of the image from the first size's (the group size changes the
+order in which clusters are met, and so which of two equal-t hits wins).
+The module constant is set for the run and restored.
+
 ``--build-times`` instead times the kernels' build both ways into a
 temporary directory: one nvcc over all sources, and one nvcc a source
 started together plus the link (what skybox_rt_tpu_torch._build does).
@@ -93,8 +105,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (capture_launches, median_ms,  # noqa: E402
-                        northstar_scene, nvidia_smi, small_scene)
+from chip_smoke import (capture_launches, graph_ms,  # noqa: E402
+                        median_ms, northstar_scene, nvidia_smi, small_scene)
 from skybox_rt_tpu_torch import _build  # noqa: E402
 from skybox_rt_tpu_torch.ops import cuda_rt  # noqa: E402
 from skybox_rt_tpu_torch.rt import bvh as bvh_mod  # noqa: E402
@@ -183,6 +195,52 @@ def sweep_leaf_tris(sizes, scene, cam, cfg, card) -> None:
                 "card": card}), flush=True)
     finally:
         tracer.BVH_LEAF_TRIS = kept
+
+
+def sweep_cluster_group(sizes, scene, cam, cfg, card) -> None:
+    kept, first = cuda_rt.CLUSTER_GROUP, None
+    try:
+        for group in sizes:
+            cuda_rt.CLUSTER_GROUP = group
+            frame, (o, d) = tracer.make_frame_fn(scene, cam, cfg)
+            img = frame(o, d)
+            first = img if first is None else first
+            clusters = cuda_rt.prepare_clusters(
+                *device_triangles(scene, o.device),
+                bvh_mod.build_clusters(scene.bvh))
+            launches = capture_launches(
+                scene, cfg,
+                lambda o, d: cuda_rt.closest_hit_clustered(o, d, clusters),
+                lambda o, d, tm: cuda_rt.any_hit_clustered(o, d, clusters,
+                                                           t_max=tm),
+                o, d)
+            closest = [(lo, ld) for kind, lo, ld, _ in launches
+                       if kind == "closest"]
+            stats, stride = {}, o.shape[0] // 65536
+            cuda_rt.closest_hit_clustered_reference(
+                o[::stride].contiguous(), d[::stride].contiguous(), clusters,
+                stats=stats)
+            rays = o[::stride].shape[0]
+            launch_ms = [event_ms(lambda: cuda_rt.closest_hit_clustered(
+                lo, ld, clusters)) for lo, ld in closest]
+            launch_graph_ms = [graph_ms(lambda: cuda_rt.closest_hit_clustered(
+                lo, ld, clusters)) for lo, ld in closest]
+            frame_ms = event_ms(lambda: frame(o, d))
+            print(json.dumps({
+                "cluster_group": group, "clusters": clusters["num_clusters"],
+                "groups": clusters["num_groups"],
+                "primary_tests_per_ray": {k: v / rays
+                                          for k, v in stats.items()},
+                "closest_launches_ms": launch_ms,
+                "closest_frame_ms": sum(launch_ms),
+                "closest_launches_graph_ms": launch_graph_ms,
+                "closest_frame_graph_ms": sum(launch_graph_ms),
+                "frame_ms": frame_ms,
+                "frame_mrays_per_s": SIZE * SIZE * 6 / frame_ms / 1e3,
+                "max_abs_diff_from_first": float((img - first).abs().max()),
+                "card": card}), flush=True)
+    finally:
+        cuda_rt.CLUSTER_GROUP = kept
 
 
 def build_times(card) -> None:
@@ -339,7 +397,7 @@ def config3(args, card) -> int:
                       "scene": "config3", "size": n,
                       "plan": [(m["draw_index"], m["mode"], m["K"], m["P"])
                                for m in metas], "card": card}), flush=True)
-    profile_line(run, "_bvh_", card)
+    profile_line(run, "bvh_walk_kernel", card)
 
     dirs = torch.stack([nx, ny, torch.ones_like(nx)], -1)
     eye = torch.zeros_like(dirs)
@@ -394,6 +452,7 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tri-block", type=int, nargs="+", metavar="SIZE")
     ap.add_argument("--leaf-tris", type=int, nargs="+", metavar="SIZE")
+    ap.add_argument("--cluster-group", type=int, nargs="+", metavar="SIZE")
     ap.add_argument("--build-times", action="store_true")
     ap.add_argument("--scene", choices=("northstar", "small", "config3"),
                     default="northstar")
@@ -435,6 +494,12 @@ def main(argv) -> int:
                              "it with --scene northstar or config3")
         sweep_leaf_tris(args.leaf_tris, scene, cam, cfg, card)
         return 0
+    if args.cluster_group:
+        if not small or args.engine:
+            raise SystemExit("--cluster-group sweeps the clustered kernels: "
+                             "use it with --scene small")
+        sweep_cluster_group(args.cluster_group, scene, cam, cfg, card)
+        return 0
     frame, (o, d) = tracer.make_frame_fn(scene, cam, cfg)
 
     def run():
@@ -448,7 +513,7 @@ def main(argv) -> int:
                       "card": card}), flush=True)
 
     profile_line(run, {"pallas": "_clustered_kernel",
-                       "pallas_bvh": "_bvh_kernel"}.get(
+                       "pallas_bvh": "bvh_walk_kernel"}.get(
                            engine, "closest_hit_blocks_kernel"), card)
     if args.engine:
         return 0

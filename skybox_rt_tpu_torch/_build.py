@@ -47,11 +47,13 @@ _SIGNATURES = {
     # o d tmax tlo slo tri s2p aabb leaf_range leaf_table, host level_off
     # level_cnt, num_levels, t_min, R, slot prim t u v, the stream
     "skybox_rt_closest_hit_bvh_after": [_P] * 12 + [_I, _F, _I] + [_P] * 6,
-    # o d tmax tri bcnt aabb, host level_off level_cnt, num_levels
-    # tri_block, t_min, R, occ, the stream
-    "skybox_rt_any_hit_bvh": [_P] * 8 + [_I, _I, _F, _I] + [_P] * 2,
-    # o d tmax tri table visit order, C, t_min, R, prim t u v, the stream
-    "skybox_rt_closest_hit_clustered": [_P] * 7 + [_I, _F, _I] + [_P] * 5,
+    # o d tmax tri aabb leaf_range leaf_table, host level_off level_cnt,
+    # num_levels, t_min, R, occ, the stream
+    "skybox_rt_any_hit_bvh": [_P] * 9 + [_I, _F, _I] + [_P] * 2,
+    # o d tmax tri table visit group_table group_visit order, C, G, t_min,
+    # R, prim t u v, the stream
+    "skybox_rt_closest_hit_clustered": [_P] * 9 + [_I, _I, _F, _I]
+                                       + [_P] * 5,
     # o d tmax tri table visit, C, t_min, R, occ, the stream
     "skybox_rt_any_hit_clustered": [_P] * 6 + [_I, _F, _I] + [_P] * 2,
     # o d tmax tri, P, t_min, R, prim t u v, the stream

@@ -30,36 +30,39 @@
 //            equality (a later leaf may hold a hit of equal t and lower
 //            slot).  t_lo never tightens the gate: a box's rounded exit can
 //            fall below a hit's t, so a near bound could drop a fragment.
-//   any:     whether any triangle of an entered block hits with t_min < t <
-//            t_max[r]; far is the fixed t_max[r], and the walk returns at the
-//            first hit.
+//   any:     whether a triangle hits with t_min < t < t_max[r] inside a
+//            leaf whose AABB the slab test enters with far = the fixed
+//            t_max[r]; the walk ends at the first such hit.
 //
-// Order.  The closest and after walks visit the pyramid in preorder with the
-// children in ascending order, so level-0 blocks are met in ascending block
-// id and a block's leaves in ascending order: the order in which the plain
-// version loops over them.  A leaf the plain version's gate lets in is never
-// culled by an ancestor here (its block or a group above it): the ancestor's
-// box contains the leaf's (both are min / max over sets of the same vertex
+// Order.  The walks visit the pyramid in preorder with the children in
+// ascending order, so level-0 blocks are met in ascending block id and a
+// block's leaves in ascending order: the order in which the plain versions
+// loop over them.  A leaf the plain version's gate lets in is never culled
+// by an ancestor here (its block or a group above it): the ancestor's box
+// contains the leaf's (both are min / max over sets of the same vertex
 // floats, the leaf's set a subset), float subtraction and multiplication by
 // one fixed factor are monotone, and the ancestor was tested against a far
 // that was no smaller (the running best only falls).  So kernel and plain
 // version test the same triangles against the same running best, and agree
-// bit for bit.
+// bit for bit.  The any-hit query's far never changes, so its answer is the
+// OR over the leaves its gate lets in and does not depend on the order at
+// all; the order only decides where a ray stops.
 //
 // Arithmetic: rt_common.cuh (round-to-nearest intrinsics, no fused
 // multiply-add, 1/d never inf), shared with rt_clustered.cu and
 // rt_streamed.cu.
 //
 // Bound: operations.  A 1024x1024 primary launch reads 24 bytes and writes
-// 16 a ray, but does tens to hundreds of triangle tests of ~53 operations
-// each a ray (one an IEEE division) and slab tests of ~25; records, leaves
-// and AABBs (about 14 MB for 185k triangles) stay in the 50 MB L2.  What the
-// design does about it:
+// 16 a ray (the any hit 28 and 1), but does tens of triangle tests of ~53
+// operations each a ray (one an IEEE division) and slab tests of ~25;
+// records, leaves and AABBs (about 14 MB for 185k triangles) stay in the
+// 50 MB L2.  What the design does about it:
 //   * fewer tests: an entered block (256 triangles in the large scene's, 64
-//     in a config-3 draw's) is no longer tested whole.  Its leaves are
-//     slab-tested against the running best, and only the triangles of the
-//     leaves that pass are tested.  A reflected ray starts inside its own
-//     sphere's blocks, so the bounce launches gain most.
+//     in a config-3 draw's) is not tested whole.  Its leaves are slab-tested
+//     (against the running best, or the any hit's t_max), and only the
+//     triangles of the leaves that pass are tested.  A reflected or shadow
+//     ray starts 1e-3 off a surface, inside its own sphere's blocks, so the
+//     bounce and shadow launches gain most.
 //   * #6's exact early exit: a ray whose carry t_lo is +inf has ended its
 //     list.  It admits no hit, because a hit has t < t_max <= +inf, so
 //     (t_lo, slot_lo) < (t, slot) never holds.  It returns a miss without a
@@ -68,6 +71,11 @@
 //     the exit.  A warp runs as long as its longest ray, so the CTA packs
 //     its live rays, in ascending order, into its first threads: the warps
 //     past them end at once.
+//   * no such exit for #3: answering the rays that miss the union of the
+//     top level's boxes (exact: it is an ancestor of every leaf) at once and
+//     packing the rest as #6 does tied on the primary shadow launch and
+//     lost about a fifth on the bounce-shadow launches (PERF.md §6), so
+//     a parked shadow ray walks the top level and ends there.
 //   * the pyramid in shared memory: a CTA of WALK_THREADS rays stages the
 //     pyramid's rows once (every level whose rows fit STAGE_ROWS with those
 //     above it: the whole pyramid of the scenes here) and reads its boxes
@@ -79,26 +87,19 @@
 //     to the parent), and nothing is kept in local memory.
 // The walk order stays ascending: a near-to-far order would need a plain
 // version that follows it, as rt_clustered.cu's octant visit table does.
-//
-// #3 keeps the first port's walk (a per-thread stack, boxes from L2, every
-// triangle of an entered block tested, one CTA a 128 rays) and its plain
-// version any_hit_bvh_reference: two kernels are redesigned at a time, and it
-// is the next.
 
 #include "rt_common.cuh"
 
 #define MAX_LEVELS 8
-// the top level is looped over, so at most 7 siblings wait per lower level,
-// plus the 8 children pushed last
-#define STACK_SIZE (7 * (MAX_LEVELS - 1) + 8)
-#define LEVEL_SHIFT 24
-#define INDEX_MASK 0xFFFFFF
-#define THREADS 128
-// threads (and rays) of a CTA of the closest and after walks, and the
-// pyramid rows a CTA stages in shared memory: 48 KB, the most a CTA takes
-// without opting in, at 24 bytes a row
+// most entries of one pyramid level: 8 times a level's index stays far
+// inside an int (ops/cuda_rt.py MAX_LEVEL_ENTRIES)
+#define MAX_LEVEL_ENTRIES (1 << 24)
+// threads (and rays) of a CTA, and the pyramid rows a CTA stages in shared
+// memory: 48 KB, the most a CTA takes without opting in, at 24 bytes a row
 #define WALK_THREADS 256
 #define STAGE_ROWS 2048
+
+enum Query { kClosest, kAfter, kAny };
 
 struct Pyramid {
     int off[MAX_LEVELS];   // first row of level l in the concatenated AABBs
@@ -106,12 +107,12 @@ struct Pyramid {
     int num_levels;
 };
 
-// The closest and after walks' operands; tlo, slo and out_slot are the
-// after query's.
+// The walks' operands; tlo, slo and out_slot are the after query's, out_occ
+// the any hit's (which writes none of out_prim .. out_v).
 struct WalkArgs {
     const float* o;
     const float* d;
-    const float* tmax;          // (R,) or null
+    const float* tmax;          // (R,) or null (the any hit: (R,))
     const float* tlo;           // (R,)
     const int* slo;             // (R,)
     const float4* tri;          // (C*TB, 3) float4
@@ -126,6 +127,7 @@ struct WalkArgs {
     float* out_t;
     float* out_u;
     float* out_v;
+    unsigned char* out_occ;     // (R,) bool
 };
 
 // Slab test of AABB row `row`: from shared memory where the row was staged
@@ -142,7 +144,8 @@ __device__ __forceinline__ bool slab_row(const float2* s_rows,
     return slab(aabb + 6 * (size_t)row, ray, far);
 }
 
-// The miss (slot, prim, t, u, v) = (-1, -1, +inf, 0, 0) of ray r.
+// The after query's miss (slot, prim, t, u, v) = (-1, -1, +inf, 0, 0) of
+// ray r.
 __device__ __forceinline__ void write_miss(const WalkArgs& a, int r) {
     a.out_slot[r] = -1;
     a.out_prim[r] = -1;
@@ -151,16 +154,17 @@ __device__ __forceinline__ void write_miss(const WalkArgs& a, int r) {
     a.out_v[r] = 0.0f;
 }
 
-// One ray of the closest (kAfter false) or after query.
-template <bool kAfter>
+// One ray of the query kQ.
+template <int kQ>
 __device__ __forceinline__ void walk_ray(const WalkArgs& a, int r,
                                          const float2* s_rows, int row0,
                                          const int* s_off, const int* s_cnt,
                                          int top) {
-    float t_lo = kAfter ? a.tlo[r] : 0.0f;
-    int s_lo = kAfter ? a.slo[r] : 0;
+    float t_lo = kQ == kAfter ? a.tlo[r] : 0.0f;
+    int s_lo = kQ == kAfter ? a.slo[r] : 0;
     Ray ray = load_ray(a.o, a.d, r);
     float tmax0 = a.tmax ? a.tmax[r] : CUDART_INF_F;
+    // the gates' far bound: the running best, which the any hit never lowers
     float best_t = tmax0, best_u = 0.0f, best_v = 0.0f;
     int best_s = -1;
     int l = top, i = 0;
@@ -186,8 +190,15 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int r,
                     float t, u, v;
                     bool hit = mt_one(a.tri, s, ray, a.t_min, t, u, v)
                         && t < tmax0;
+                    if constexpr (kQ == kAny) {
+                        if (hit) {              // the first hit ends the walk
+                            a.out_occ[r] = 1;
+                            return;
+                        }
+                        continue;
+                    }
                     // (t_lo, s_lo) < (t, s), lexicographic
-                    if (kAfter)
+                    if (kQ == kAfter)
                         hit = hit && (t > t_lo || (t == t_lo && s > s_lo));
                     // lexicographic (t, slot) minimum: independent of the
                     // order in which leaves are met
@@ -207,20 +218,24 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int r,
         }
         more = ++i < s_cnt[l];          // false only at the top level
     }
-    bool miss = best_s < 0;
-    if (kAfter) a.out_slot[r] = best_s;
-    a.out_prim[r] = miss ? -1 : __ldg(a.s2p + best_s);
-    a.out_t[r] = miss ? CUDART_INF_F : best_t;
-    a.out_u[r] = miss ? 0.0f : best_u;
-    a.out_v[r] = miss ? 0.0f : best_v;
+    if constexpr (kQ == kAny) {
+        a.out_occ[r] = 0;
+    } else {
+        bool miss = best_s < 0;
+        if (kQ == kAfter) a.out_slot[r] = best_s;
+        a.out_prim[r] = miss ? -1 : __ldg(a.s2p + best_s);
+        a.out_t[r] = miss ? CUDART_INF_F : best_t;
+        a.out_u[r] = miss ? 0.0f : best_u;
+        a.out_v[r] = miss ? 0.0f : best_v;
+    }
 }
 
 // One CTA a WALK_THREADS consecutive rays.  Stages pyramid rows row0 ..
 // row0 + rows - 1 (dynamic shared memory, 24 bytes a row); the after query
 // answers its ended rays at once and packs the rest into its first threads.
-template <bool kAfter>
+template <int kQ>
 __global__ void __launch_bounds__(WALK_THREADS)
-closest_hit_bvh_kernel(WalkArgs a, Pyramid pyr, int row0, int rows) {
+bvh_walk_kernel(WalkArgs a, Pyramid pyr, int row0, int rows) {
     extern __shared__ float2 s_rows[];
     __shared__ int s_off[MAX_LEVELS], s_cnt[MAX_LEVELS];
     __shared__ int s_warp_live[WALK_THREADS / 32];
@@ -236,9 +251,9 @@ closest_hit_bvh_kernel(WalkArgs a, Pyramid pyr, int row0, int rows) {
     }
     const int top = pyr.num_levels - 1;
     int r = blockIdx.x * WALK_THREADS + threadIdx.x;
-    if (!kAfter) {
+    if (kQ != kAfter) {
         __syncthreads();
-        if (r < a.R) walk_ray<false>(a, r, s_rows, row0, s_off, s_cnt, top);
+        if (r < a.R) walk_ray<kQ>(a, r, s_rows, row0, s_off, s_cnt, top);
         return;
     }
     bool live = r < a.R && a.tlo[r] != CUDART_INF_F;
@@ -256,91 +271,26 @@ closest_hit_bvh_kernel(WalkArgs a, Pyramid pyr, int row0, int rows) {
     if (live) s_live[before + __popc(ballot & ((1u << lane) - 1u))] = r;
     __syncthreads();
     if (threadIdx.x < n)
-        walk_ray<true>(a, s_live[threadIdx.x], s_rows, row0, s_off, s_cnt,
-                       top);
-}
-
-// #3's walk: the pyramid for one ray with a per-thread stack, boxes from L2.
-// `leaf(block)` tests the block's triangles, may lower `far`, and returns
-// true to end the walk.
-template <typename Leaf>
-__device__ __forceinline__ void walk(const float* __restrict__ aabb,
-                                     const Pyramid& pyr, const Ray& ray,
-                                     const float& far, Leaf leaf) {
-    int stack[STACK_SIZE];
-    int top = pyr.num_levels - 1;
-    int top_cnt = pyr.cnt[top];
-    for (int g = 0; g < top_cnt; ++g) {
-        int sp = 0;
-        stack[sp++] = (top << LEVEL_SHIFT) | g;
-        while (sp > 0) {
-            int e = stack[--sp];
-            int lvl = e >> LEVEL_SHIFT;
-            int idx = e & INDEX_MASK;
-            if (!slab(aabb + 6 * (size_t)(pyr.off[lvl] + idx), ray, far))
-                continue;
-            if (lvl == 0) {
-                if (leaf(idx)) return;
-            } else {
-                int c0 = idx * 8;
-                int c1 = min(c0 + 8, pyr.cnt[lvl - 1]);
-                for (int c = c1 - 1; c >= c0; --c)
-                    stack[sp++] = ((lvl - 1) << LEVEL_SHIFT) | c;
-            }
-        }
-    }
-}
-
-__global__ void __launch_bounds__(THREADS)
-any_hit_bvh_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                   const float* __restrict__ tmax,          // (R,)
-                   const float4* __restrict__ tri,
-                   const int* __restrict__ bcnt,
-                   const float* __restrict__ aabb, Pyramid pyr, int tri_block,
-                   float t_min, int R,
-                   unsigned char* __restrict__ out_occ) {   // (R,) bool
-    int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= R) return;
-    Ray ray = load_ray(o, d, r);
-    float far = tmax[r];
-    bool occluded = false;
-    walk(aabb, pyr, ray, far, [&](int b) {
-        int base = b * tri_block;
-        int n = __ldg(bcnt + b);
-        for (int j = 0; j < n; ++j) {
-            float t, u, v;
-            if (mt_one(tri, base + j, ray, t_min, t, u, v) && t < far) {
-                occluded = true;
-                return true;
-            }
-        }
-        return false;
-    });
-    out_occ[r] = occluded ? 1 : 0;
-}
-
-static int fill_pyramid(Pyramid& pyr, const int* level_off,
-                        const int* level_cnt, int num_levels) {
-    if (num_levels < 1 || num_levels > MAX_LEVELS)
-        return cudaErrorInvalidValue;
-    for (int l = 0; l < num_levels; ++l) {
-        if (level_cnt[l] > INDEX_MASK + 1) return cudaErrorInvalidValue;
-        pyr.off[l] = level_off[l];
-        pyr.cnt[l] = level_cnt[l];
-    }
-    pyr.num_levels = num_levels;
-    return cudaSuccess;
+        walk_ray<kAfter>(a, s_live[threadIdx.x], s_rows, row0, s_off, s_cnt,
+                         top);
 }
 
 // level_off / level_cnt are host arrays of num_levels ints.  Every entry
 // returns the launch's cudaError_t (0 = launched) and never synchronizes.
-template <bool kAfter>
+template <int kQ>
 static int launch_walk(WalkArgs a, const int* level_off,
                        const int* level_cnt, int num_levels,
                        cudaStream_t stream) {
+    if (num_levels < 1 || num_levels > MAX_LEVELS)
+        return cudaErrorInvalidValue;
     Pyramid pyr = {};
-    int rc = fill_pyramid(pyr, level_off, level_cnt, num_levels);
-    if (rc != cudaSuccess) return rc;
+    for (int l = 0; l < num_levels; ++l) {
+        if (level_cnt[l] < 0 || level_cnt[l] > MAX_LEVEL_ENTRIES)
+            return cudaErrorInvalidValue;
+        pyr.off[l] = level_off[l];
+        pyr.cnt[l] = level_cnt[l];
+    }
+    pyr.num_levels = num_levels;
     if (a.R == 0) return cudaSuccess;
     // stage the lowest level whose rows fit STAGE_ROWS with those above it
     int total = pyr.off[num_levels - 1] + pyr.cnt[num_levels - 1];
@@ -350,7 +300,7 @@ static int launch_walk(WalkArgs a, const int* level_off,
         row0 = pyr.off[l];
     size_t smem = (size_t)(total - row0) * 6 * sizeof(float);
     int grid = (a.R + WALK_THREADS - 1) / WALK_THREADS;
-    closest_hit_bvh_kernel<kAfter><<<grid, WALK_THREADS, smem, stream>>>(
+    bvh_walk_kernel<kQ><<<grid, WALK_THREADS, smem, stream>>>(
         a, pyr, row0, total - row0);
     return (int)cudaGetLastError();
 }
@@ -366,9 +316,9 @@ extern "C" int skybox_rt_closest_hit_bvh(
                   (const float*)aabb, (const int*)leaf_range,
                   (const float4*)leaf_table, t_min, R, nullptr,
                   (int*)out_prim, (float*)out_t, (float*)out_u,
-                  (float*)out_v};
-    return launch_walk<false>(a, level_off, level_cnt, num_levels,
-                              (cudaStream_t)stream);
+                  (float*)out_v, nullptr};
+    return launch_walk<kClosest>(a, level_off, level_cnt, num_levels,
+                                 (cudaStream_t)stream);
 }
 
 extern "C" int skybox_rt_closest_hit_bvh_after(
@@ -383,24 +333,22 @@ extern "C" int skybox_rt_closest_hit_bvh_after(
                   (const int*)s2p, (const float*)aabb, (const int*)leaf_range,
                   (const float4*)leaf_table, t_min, R, (int*)out_slot,
                   (int*)out_prim, (float*)out_t, (float*)out_u,
-                  (float*)out_v};
-    return launch_walk<true>(a, level_off, level_cnt, num_levels,
-                             (cudaStream_t)stream);
+                  (float*)out_v, nullptr};
+    return launch_walk<kAfter>(a, level_off, level_cnt, num_levels,
+                               (cudaStream_t)stream);
 }
 
 extern "C" int skybox_rt_any_hit_bvh(
         const void* o, const void* d, const void* tmax, const void* tri,
-        const void* bcnt, const void* aabb, const int* level_off,
-        const int* level_cnt, int num_levels, int tri_block, float t_min,
-        int R, void* out_occ, void* stream) {
-    Pyramid pyr;
-    int rc = fill_pyramid(pyr, level_off, level_cnt, num_levels);
-    if (rc != cudaSuccess) return rc;
-    if (R == 0) return cudaSuccess;
-    int grid = (R + THREADS - 1) / THREADS;
-    any_hit_bvh_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)o, (const float*)d, (const float*)tmax,
-        (const float4*)tri, (const int*)bcnt, (const float*)aabb, pyr,
-        tri_block, t_min, R, (unsigned char*)out_occ);
-    return (int)cudaGetLastError();
+        const void* aabb, const void* leaf_range, const void* leaf_table,
+        const int* level_off, const int* level_cnt, int num_levels,
+        float t_min, int R, void* out_occ, void* stream) {
+    if (tmax == nullptr) return cudaErrorInvalidValue;
+    WalkArgs a = {(const float*)o, (const float*)d, (const float*)tmax,
+                  nullptr, nullptr, (const float4*)tri, nullptr,
+                  (const float*)aabb, (const int*)leaf_range,
+                  (const float4*)leaf_table, t_min, R, nullptr, nullptr,
+                  nullptr, nullptr, nullptr, (unsigned char*)out_occ};
+    return launch_walk<kAny>(a, level_off, level_cnt, num_levels,
+                             (cudaStream_t)stream);
 }

@@ -165,8 +165,9 @@ def clusters_from_reference(clusters, v0, e1, e2, device) -> dict:
     triangle arrays (v0, e1, e2: (P, 3), as numpy) its clustered kernels are
     called with -> the port's ``ops.cuda_rt.prepare_clusters`` dict on
     ``device``: the records in treelet order without the 16-lane padding,
-    the cluster table, and the port's own octant visit table (the JAX
-    package derives its table inside each call, it is no state)."""
+    the cluster table, and the port's own group table and octant visit
+    tables (the JAX package derives its table inside each call, it is no
+    state)."""
     order = np.array(clusters["order"], np.int32)
     tri = cuda_rt.pack_records(
         *(torch.from_numpy(np.array(a, np.float32)) for a in (v0, e1, e2)),

@@ -42,22 +42,24 @@ order, which depends on how rays were packed into tiles.)  The flat query
 Culling.  The clustered closest hit enters a cluster when the slab test
 passes against the ray's *running* best t, so which clusters a ray enters
 depends on the order it meets them in.  Kernel and plain version therefore
-make the same per-ray decisions: every ray takes the row of the (8, C) visit
-table for its own direction octant (near to far), with the same far bound.
-They test the same triangles against the same running best, and agree bit
-for bit.  The any-hit queries cull against the fixed t_max, so their answer
-does not depend on the order.
+make the same per-ray decisions in the same two-level order: groups of
+``CLUSTER_GROUP`` consecutive clusters near to far along the ray's direction
+octant, and inside an entered group its clusters near to far
+(:func:`pack_clusters`), with the same far bound.  A group's box contains its
+clusters' boxes, so its gate culls no cluster that the cluster's own gate
+would let in.  They test the same triangles against the same running best,
+and agree bit for bit.  The any-hit queries cull against the fixed t_max,
+so their answer does not depend on the order.
 
 Records are the port's own layout: ``(rows, 12)`` float32 [v0 e1 e2 | 3 of
 padding], three float4 a row.  BVH blocks hold ``C * tri_block`` rows; rows
-past a block's ``bcnt[b]`` triangles are zero and never read.  The
-closest-hit and next-hit-after queries over them test a block's triangles
-leaf by leaf (rt.bvh.build_block_leaves: ascending slot ranges with their
-own boxes, the blocks dict's ``leaf_range`` / ``leaf_table``); the any-hit
-query tests an entered block whole.  Clusters hold
-the P triangles in treelet order, the flat query in prim order, the streamed
-and worklist queries in the caller's ``order``, cut into blocks of
-``tri_block`` rows with the last one shorter.
+past a block's ``bcnt[b]`` triangles are zero and never read.  All three
+queries over them test a block's triangles leaf by leaf
+(rt.bvh.build_block_leaves: ascending slot ranges with their own boxes, the
+blocks dict's ``leaf_range`` / ``leaf_table``), and refuse blocks without
+that table.  Clusters hold the P triangles in treelet order, the flat query
+in prim order, the streamed and worklist queries in the caller's ``order``,
+cut into blocks of ``tri_block`` rows with the last one shorter.
 """
 from __future__ import annotations
 
@@ -71,11 +73,16 @@ import torch
 from ..rt import intersect
 
 T_MIN = 1e-4
-#: deepest AABB pyramid the kernel's per-thread stack is sized for
+#: deepest AABB pyramid the BVH-block kernels' level table holds
 #: (csrc/rt_bvh.cu MAX_LEVELS); 64 * 8**7 blocks
 MAX_LEVELS = 8
-#: most entries a pyramid level may have (24 index bits of a stack entry)
+#: most entries a pyramid level may have (csrc/rt_bvh.cu MAX_LEVEL_ENTRIES)
 MAX_LEVEL_ENTRIES = 1 << 24
+#: clusters a group of the clustered closest-hit query holds
+#: (:func:`pack_clusters`).  Swept over 4, 8 and 16 on an H100
+#: (scripts/torch_rt_profile.py --cluster-group, PERF.md): 16 gave the
+#: fastest closest-hit launches, 4 and 8 tie.
+CLUSTER_GROUP = 16
 RECORD_WIDTH = 12
 #: rays of one tile of the streamed and worklist queries: one thread block
 #: (csrc/rt_streamed.cu RAY_TILE), and the unit of the worklist's prepass
@@ -104,13 +111,12 @@ def pack_blocks(rows9, bcnt, s2p, levels, tri_block, num_prims, device,
     """The dict the queries take, from numpy arrays: rows9 (C*TB, 9)
     records in slot order, bcnt (C,), s2p (C*TB,), levels [(C_l, 6)], and
     leaves, rt.bvh.build_block_leaves of the same blocks.  Without leaves
-    only :func:`any_hit_bvh` takes the dict; the closest-hit queries
-    refuse it."""
+    the queries refuse the dict (it still describes the blocks)."""
     device = torch.device(device)
     num_blocks = int(bcnt.shape[0])
     if len(levels) > MAX_LEVELS:
         raise ValueError(f"AABB pyramid has {len(levels)} levels, the "
-                         f"kernel's stack holds {MAX_LEVELS}")
+                         f"kernels take at most {MAX_LEVELS}")
     if rows9.shape != (num_blocks * tri_block, 9):
         raise ValueError(f"records have shape {tuple(rows9.shape)}, expected "
                          f"{(num_blocks * tri_block, 9)}")
@@ -231,11 +237,47 @@ def octant_visit_table(aabb):
     return np.asarray(rows, np.int32).reshape(8, aabb.shape[0])
 
 
-def pack_clusters(tri, aabb, first, count, order, device):
+def cluster_groups(aabb, group):
+    """The two-level visit order of clusters with boxes ``aabb`` (C, >= 6)
+    float32, cut into groups of ``group`` consecutive clusters (treelet
+    order: they lie together in space; the last group may be shorter).
+    Returns numpy (table (G, 8) float32: each group's box, the float32 min /
+    max of its clusters' boxes, then its first cluster and count as bit
+    patterns; group_visit (8, G) int32: :func:`octant_visit_table` of the
+    group boxes; visit (8, C) int32: per octant the groups in that order,
+    each group's clusters in the octant's near-to-far order of their own
+    centres, flattened)."""
+    if group < 1:
+        raise ValueError(f"cluster group {group} < 1")
+    box = np.asarray(aabb, np.float32)[:, :6]
+    C = box.shape[0]
+    G = -(-C // group)
+    lo = np.full((G * group, 3), np.inf, np.float32)
+    hi = np.full((G * group, 3), -np.inf, np.float32)
+    lo[:C], hi[:C] = box[:, 0:3], box[:, 3:6]
+    gfirst = np.arange(G) * group
+    table = np.zeros((G, 8), np.float32)
+    table[:, 0:3] = lo.reshape(G, group, 3).min(axis=1)
+    table[:, 3:6] = hi.reshape(G, group, 3).max(axis=1)
+    table[:, 6:8] = np.stack([gfirst, np.minimum(group, C - gfirst)],
+                             axis=1).astype(np.int32).view(np.float32)
+    group_visit = octant_visit_table(table)
+    # per octant: the group's place in its order, then the cluster's own
+    # near-to-far rank (the inverse permutations of the two visit rows)
+    gpos = np.argsort(group_visit, axis=1).astype(np.int64)
+    rank = np.argsort(octant_visit_table(box), axis=1).astype(np.int64)
+    key = gpos[:, np.arange(C) // group] * C + rank
+    visit = np.argsort(key, axis=1, kind="stable").astype(np.int32)
+    return table, group_visit, visit.reshape(8, C)
+
+
+def pack_clusters(tri, aabb, first, count, order, device, group=None):
     """The dict the clustered queries take: tri (P, 12) records in treelet
     order (a tensor), and numpy aabb (C, >= 6), first (C,), count (C,),
-    order (P,) of rt.bvh.build_clusters."""
+    order (P,) of rt.bvh.build_clusters; the clusters are cut into groups of
+    ``group`` (default :data:`CLUSTER_GROUP`) by :func:`cluster_groups`."""
     device = torch.device(device)
+    group = CLUSTER_GROUP if group is None else int(group)
     aabb = np.asarray(aabb, np.float32)
     first = np.asarray(first, np.int32)
     count = np.asarray(count, np.int32)
@@ -255,27 +297,36 @@ def pack_clusters(tri, aabb, first, count, order, device):
     table = np.zeros((C, 8), np.float32)
     table[:, :6] = aabb[:, :6]
     table[:, 6:8] = np.stack([first, count], axis=1).view(np.float32)
+    group_table, group_visit, visit = cluster_groups(aabb, group)
     return {
         "tri": tri.to(device=device, dtype=torch.float32).contiguous(),
         "table": torch.from_numpy(table).to(device),          # (C, 8)
-        "visit": torch.from_numpy(octant_visit_table(aabb)).to(device),
+        # the two-level order, flattened: what the any-hit query walks
+        "visit": torch.from_numpy(visit).to(device),          # (8, C)
+        "group_table": torch.from_numpy(group_table).to(device),  # (G, 8)
+        "group_visit": torch.from_numpy(group_visit).to(device),  # (8, G)
         "order": torch.from_numpy(order).to(device),          # slot -> prim
         "num_clusters": C,
+        "num_groups": int(group_table.shape[0]),
+        "cluster_group": group,
         "num_prims": P,
     }
 
 
-def prepare_clusters(v0, e1, e2, clusters, device=None):
+def prepare_clusters(v0, e1, e2, clusters, device=None, group=None):
     """Pack the scene for the clustered queries (once per scene): records in
-    treelet order, the cluster table and the octant visit table.
+    treelet order, the cluster and group tables and the octant visit
+    tables.
 
     v0, e1, e2: (P, 3) float32 tensors (rt.intersect.triangle_arrays);
-    clusters: rt.bvh.build_clusters output.  Lands on ``device`` (default:
-    where v0 lies)."""
+    clusters: rt.bvh.build_clusters output; group: clusters a group
+    (default :data:`CLUSTER_GROUP`).  Lands on ``device`` (default: where v0
+    lies)."""
     device = v0.device if device is None else torch.device(device)
     tri = pack_records(v0.cpu(), e1.cpu(), e2.cpu(), order=clusters["order"])
     return pack_clusters(tri, clusters["aabb"], clusters["first"],
-                         clusters["count"], clusters["order"], device)
+                         clusters["count"], clusters["order"], device,
+                         group=group)
 
 
 def _slab(box, o, inv, far):
@@ -441,14 +492,6 @@ def _closest_result(best_t, best_s, best_u, best_v, slot_to_prim):
             torch.where(miss, zero, best_v))
 
 
-def _block_boxes(blocks, block_order):
-    TB = blocks["tri_block"]
-    counts = blocks["bcnt"].tolist()
-    level0 = blocks["levels"][0]
-    order = range(blocks["num_blocks"]) if block_order is None else block_order
-    return ((level0[b], b * TB, counts[b]) for b in order)
-
-
 def _leaf_table(blocks):
     if blocks.get("leaf_table") is None:
         raise ValueError("the blocks have no leaf table: pass "
@@ -508,15 +551,92 @@ def closest_hit_bvh_reference(orig, direction, blocks, t_max=None,
     return _closest_result(*best, blocks["s2p"])
 
 
+def _any_over_leaves(tri, box, met, leaf_of, first, n, rays, o, d, inv,
+                     tmax, t_min, occ, stats):
+    """The leaves of one block for ``rays`` (an index tensor) against the
+    fixed far ``tmax``: all leaf gates in one batch (box (nl, 6)), then the
+    Möller–Trumbore batch of the block's n record rows from ``first`` on.
+    ``met`` (n,) lists the block's slots (offsets from ``first``) in the
+    order the walk meets them, leaf by leaf; ``leaf_of`` (n,) is each met
+    slot's leaf.  Sets ``occ`` where a triangle of a passing leaf hits with
+    t_min < t < tmax, and counts what a walk that stops at its first hit
+    tests: ``slab_tests`` / ``slab_pass`` of the leaves up to the hit,
+    ``tri_tests`` of their triangles, and ``block_tri_tests``, the triangles
+    a walk that tested the block whole, in ascending slot order, would
+    test."""
+    nl = box.shape[0]
+    lbox = [box[None, :, k] for k in range(6)]
+    for idx in _idx_chunks(rays, n):
+        far = tmax[idx][:, None]
+        lpass = _slab_pass(lbox, [c[idx][:, None] for c in o],
+                           [c[idx][:, None] for c in inv], far)   # (r, nl)
+        ok, t, _, _ = _range_tests(tri, first, n, o, d, idx, t_min)
+        whole = ok & (t < far)                    # (r, n), ascending slots
+        gate = lpass[:, leaf_of]                  # (r, n), met order
+        hit = whole[:, met] & gate
+        found = hit.any(dim=1)
+        occ[idx[found]] = True
+        if stats is None:
+            continue
+        # the first hit in met order, and in ascending order for whole blocks
+        j = torch.argmax(hit.to(torch.int8), dim=1, keepdim=True)
+        jw = torch.argmax(whole.to(torch.int8), dim=1)
+        last = torch.full_like(j, n - 1)
+        upto = torch.where(found[:, None], j, last)         # last slot met
+        k = leaf_of[upto]                                    # its leaf
+        _count(stats,
+               slab_tests=torch.where(found, k[:, 0] + 1, nl).sum(),
+               slab_pass=lpass.cumsum(dim=1).gather(1, k).sum(),
+               tri_tests=gate.cumsum(dim=1).gather(1, upto).sum(),
+               block_tri_tests=torch.where(whole.any(dim=1), jw + 1,
+                                           n).sum())
+
+
 def any_hit_bvh_reference(orig, direction, blocks, t_max=1.0,
                           t_min: float = T_MIN, block_order=None, stats=None):
-    """Plain torch occlusion query over the blocks, on any device: whether
-    any triangle hits with t_min < t < t_max (a number or (R,)).  Every
-    entered block is tested whole (no leaf table)."""
+    """Plain torch occlusion query over the blocks' leaves, on any device:
+    what :func:`any_hit_bvh` returns, whether a triangle hits with t_min < t
+    < t_max (a number or (R,)) inside a leaf whose box the ray's slab test
+    enters with far = its fixed t_max.
+
+    Loops over level-0 blocks (ascending, or ``block_order``): the slab gate
+    of every ray not yet occluded, then for the rays that enter, all of the
+    block's leaves through :func:`_any_over_leaves`, in the order of the
+    leaf table.  The far bound never changes, so the answer does not depend
+    on the order of blocks or leaves, and the block gate changes none (a
+    leaf's box lies inside its block's); the order decides only where a ray
+    stops, and so the counts.  ``stats``, a dict, gains ``blocks_entered``
+    and the counts named there."""
+    rng, table = _leaf_table(blocks)
     o, d, inv = _components(orig, direction)
-    tmax = _per_ray_tmax(t_max, orig.shape[0], orig.device)
-    return _any_over(blocks["tri"], _block_boxes(blocks, block_order),
-                     o, d, inv, tmax, t_min, stats)
+    R, dev = orig.shape[0], orig.device
+    tmax = _per_ray_tmax(t_max, R, dev)
+    occ = torch.zeros((R,), dtype=torch.bool, device=dev)
+    alive = torch.arange(R, device=dev)
+    TB, level0 = blocks["tri_block"], blocks["levels"][0]
+    rng, counts = rng.tolist(), blocks["bcnt"].tolist()
+    ranges = table[:, 6:8].contiguous().view(torch.int32).long()
+    order = range(blocks["num_blocks"]) if block_order is None else block_order
+    for b in order:
+        if alive.numel() == 0:
+            break
+        entered = alive[_slab_pass(level0[b], _take(o, alive),
+                                   _take(inv, alive), tmax[alive])]
+        _count(stats, blocks_entered=entered.numel())
+        k0, k1, n = rng[b], rng[b + 1], counts[b]
+        if entered.numel() == 0 or n == 0:
+            continue
+        # the block's slots leaf by leaf, in the table's order
+        first, cnt = ranges[k0:k1, 0] - b * TB, ranges[k0:k1, 1]
+        leaf_of = torch.repeat_interleave(
+            torch.arange(k1 - k0, device=dev), cnt)
+        start = torch.cumsum(cnt, 0) - cnt
+        met = (first - start)[leaf_of] + torch.arange(n, device=dev)
+        _any_over_leaves(blocks["tri"], table[k0:k1, :6], met, leaf_of,
+                         b * TB, n, entered, o, d, inv, tmax, t_min, occ,
+                         stats)
+        alive = alive[~occ[alive]]
+    return occ
 
 
 def closest_hit_bvh_after_reference(orig, direction, blocks, t_lo, slot_lo,
@@ -654,35 +774,59 @@ def closest_hit_worklist_reference(orig, direction, stream, lists, counts,
 
 
 def _octant_groups(clusters, d):
-    """For each direction octant that holds rays: (ray indices, the
-    clusters' (AABB row, first, count) in that octant's visit order)."""
-    table = clusters["table"]
+    """For each direction octant that holds rays: (ray indices, that
+    octant's groups in its visit order, each (group AABB row, its clusters'
+    (AABB row, first, count) in the octant's order))."""
+    table, gtable = clusters["table"], clusters["group_table"]
     ranges = table[:, 6:8].contiguous().view(torch.int32).tolist()
+    sizes = gtable[:, 7].contiguous().view(torch.int32).tolist()
+    gvisit = clusters["group_visit"].tolist()
     visit = clusters["visit"].tolist()
     octant = ((d[0] > 0).long() | ((d[1] > 0).long() << 1)
               | ((d[2] > 0).long() << 2))
     for q in range(8):
         rays = torch.nonzero(octant == q)[:, 0]
-        if rays.numel():
-            yield rays, [(table[c], *ranges[c]) for c in visit[q]]
+        if not rays.numel():
+            continue
+        groups, pos = [], 0
+        for g in gvisit[q]:
+            groups.append((gtable[g], [(table[c], *ranges[c])
+                                       for c in visit[q][pos:pos + sizes[g]]]))
+            pos += sizes[g]
+        yield rays, groups
 
 
 def closest_hit_clustered_reference(orig, direction, clusters, t_max=None,
                                     t_min: float = T_MIN, stats=None):
     """Plain torch clustered closest hit, on any device: what
     :func:`closest_hit_clustered` returns.  The rays of one direction octant
-    go through that octant's row of the visit table together
-    (:func:`_closest_over`); ``stats`` as in
-    :func:`closest_hit_bvh_reference`."""
+    go through that octant's groups in its order together: the slab gate of
+    every ray against its running best t, then for the rays that enter, the
+    group's clusters in the octant's order through :func:`_closest_box`.
+
+    The group gate changes no result: a group's box contains its clusters'
+    boxes and the running best only falls, so a ray that passes a cluster's
+    gate has passed its group's.  It is here to count the kernel's work:
+    ``stats`` gains ``group_slab_tests`` and ``groups_entered`` beside the
+    clusters' ``slab_tests`` / ``slab_pass`` and the ``tri_tests``."""
     R = orig.shape[0]
     dev = orig.device
     o, d, inv = _components(orig, direction)
     tmax0 = _per_ray_tmax(math.inf if t_max is None else t_max, R, dev)
     best = _new_best(tmax0)
-    for rays, boxes in _octant_groups(clusters, d):
-        got = _closest_over(clusters["tri"], boxes, _take(o, rays),
-                            _take(d, rays), _take(inv, rays), tmax0[rays],
-                            t_min, stats)
+    for rays, groups in _octant_groups(clusters, d):
+        oq, dq, iq, tq = (_take(o, rays), _take(d, rays), _take(inv, rays),
+                          tmax0[rays])
+        got = _new_best(tq)
+        for gbox, boxes in groups:
+            entered = torch.nonzero(_slab_pass(gbox, oq, iq, got[0]))[:, 0]
+            _count(stats, group_slab_tests=rays.numel(),
+                   groups_entered=entered.numel())
+            if entered.numel() == 0:
+                continue
+            for box, first, n in boxes:
+                _closest_box(got, clusters["tri"], box, first, n, entered, oq,
+                             dq, iq, tq, t_min, stats, None)
         for whole, part in zip(best, got):
             whole[rays] = part
     return _closest_result(*best, clusters["order"])
@@ -691,13 +835,15 @@ def closest_hit_clustered_reference(orig, direction, clusters, t_max=None,
 def any_hit_clustered_reference(orig, direction, clusters, t_max=1.0,
                                 t_min: float = T_MIN, stats=None):
     """Plain torch clustered occlusion query, on any device: what
-    :func:`any_hit_clustered` returns, in the kernel's per-ray visit order
-    (the answer does not depend on it; the counts in ``stats`` do)."""
+    :func:`any_hit_clustered` returns, in the kernel's per-ray visit order,
+    the flattened two-level order of the ray's octant (the answer does not
+    depend on it; the counts in ``stats`` do)."""
     R = orig.shape[0]
     o, d, inv = _components(orig, direction)
     tmax = _per_ray_tmax(t_max, R, orig.device)
     occ = torch.zeros((R,), dtype=torch.bool, device=orig.device)
-    for rays, boxes in _octant_groups(clusters, d):
+    for rays, groups in _octant_groups(clusters, d):
+        boxes = [b for _, members in groups for b in members]
         occ[rays] = _any_over(clusters["tri"], boxes, _take(o, rays),
                               _take(d, rays), _take(inv, rays), tmax[rays],
                               t_min, stats)
@@ -785,8 +931,8 @@ def _kernel_args(orig, direction, blocks, leaves=False):
     _check_on_card(orig.device, "blocks", tensors)
     n = len(blocks["level_offsets"])
     if not 1 <= n <= MAX_LEVELS:
-        raise ValueError(f"AABB pyramid has {n} levels, the kernel's stack "
-                         f"holds {MAX_LEVELS}")
+        raise ValueError(f"AABB pyramid has {n} levels, the kernels take "
+                         f"at most {MAX_LEVELS}")
     arr = ctypes.c_int * n
     return (orig.contiguous(), direction.contiguous(),
             arr(*blocks["level_offsets"]), arr(*blocks["level_counts"]), n)
@@ -794,10 +940,13 @@ def _kernel_args(orig, direction, blocks, leaves=False):
 
 def _check_clusters(dev, clusters):
     C, P = clusters["num_clusters"], clusters["num_prims"]
+    G = clusters["num_groups"]
     _check_on_card(dev, "clusters", (
         ("tri", clusters["tri"], (P, RECORD_WIDTH), torch.float32),
         ("table", clusters["table"], (C, 8), torch.float32),
         ("visit", clusters["visit"], (8, C), torch.int32),
+        ("group_table", clusters["group_table"], (G, 8), torch.float32),
+        ("group_visit", clusters["group_visit"], (8, G), torch.int32),
         ("order", clusters["order"], (P,), torch.int32)))
 
 
@@ -850,19 +999,23 @@ def closest_hit_bvh(orig, direction, blocks, t_max=None,
 
 
 def any_hit_bvh(orig, direction, blocks, t_max=1.0, t_min: float = T_MIN):
-    """Occlusion query: (R,) bool, true where some triangle hits with
-    t_min < t < t_max (a number or (R,) float32)."""
+    """Occlusion query over the treelet blocks' leaves: (R,) bool, true
+    where some triangle hits with t_min < t < t_max (a number or (R,)
+    float32) inside a leaf whose box the ray enters before t_max.
+
+    blocks: :func:`prepare_bvh_blocks` output on the rays' device, with its
+    leaf table."""
     _check_rays(orig, direction)
     tmax = _per_ray_tmax(t_max, orig.shape[0], orig.device)
     if orig.device.type == "cpu":
         return any_hit_bvh_reference(orig, direction, blocks, tmax, t_min)
-    o, d, off, cnt, n = _kernel_args(orig, direction, blocks)
+    o, d, off, cnt, n = _kernel_args(orig, direction, blocks, leaves=True)
     R = o.shape[0]
     occ = torch.empty((R,), dtype=torch.bool, device=o.device)
     _launch("skybox_rt_any_hit_bvh", o.device,
             _ptr(o), _ptr(d), _ptr(tmax), _ptr(blocks["tri"]),
-            _ptr(blocks["bcnt"]), _ptr(blocks["aabb"]), off, cnt, n,
-            blocks["tri_block"], t_min, R, _ptr(occ))
+            _ptr(blocks["aabb"]), _ptr(blocks["leaf_range"]),
+            _ptr(blocks["leaf_table"]), off, cnt, n, t_min, R, _ptr(occ))
     return occ
 
 
@@ -887,7 +1040,9 @@ def closest_hit_clustered(orig, direction, clusters, t_max=None,
     _launch("skybox_rt_closest_hit_clustered", o.device,
             _ptr(o), _ptr(d), _ptr(t_max), _ptr(clusters["tri"]),
             _ptr(clusters["table"]), _ptr(clusters["visit"]),
-            _ptr(clusters["order"]), clusters["num_clusters"], t_min, R,
+            _ptr(clusters["group_table"]), _ptr(clusters["group_visit"]),
+            _ptr(clusters["order"]), clusters["num_clusters"],
+            clusters["num_groups"], t_min, R,
             _ptr(prim), _ptr(t), _ptr(u), _ptr(v))
     return prim, t, u, v
 

@@ -474,9 +474,9 @@ def build_block_leaves(bvh: BVH, block_set, leaf_tris: int):
     box.  Within a block the leaves are ascending and cover its slots
     [0, bcnt) once.  Every leaf box lies exactly inside its block's box, and
     holds its triangles' vertices: each is the min / max over a set of the
-    same vertex floats.  The BVH-block closest-hit queries
-    (ops.cuda_rt.closest_hit_bvh, closest_hit_bvh_after) walk a block's
-    leaves in this order.
+    same vertex floats.  The BVH-block queries (ops.cuda_rt.closest_hit_bvh,
+    closest_hit_bvh_after, any_hit_bvh) walk a block's leaves in this
+    order.
 
     Returns dict:
       range  (C + 1,) i32   block b's leaves are rows range[b] .. range[b+1]

@@ -40,8 +40,8 @@ PALLAS_MAX_TRIS = 15000
 #: ``blocks`` in both packages; it has not been tuned for this card.
 BVH_TRI_BLOCK = 256
 #: most triangles of a leaf inside a block (rt.bvh.build_block_leaves): the
-#: closest-hit and next-hit-after queries test a leaf's triangles only where
-#: the ray passes its box.  Both the pallas_bvh engine and rt.raster_bridge's
+#: closest-hit, next-hit-after and any-hit queries test a leaf's triangles
+#: only where the ray passes its box.  Both the pallas_bvh engine and rt.raster_bridge's
 #: per-draw blocks take it.  Swept over 8, 16 and 32 on an H100
 #: (scripts/torch_rt_profile.py --leaf-tris, PERF.md): 8 and 16 give frames
 #: within noise of each other, 8 the lower closest-hit kernel time; 32 is

@@ -8,7 +8,10 @@ JAX-built BVH carried over with ``interop``.  ``ops.cuda_rt``'s
 to ``pallas_rt``'s kernels of the same names, run as the JAX package's own
 tests run them on the CPU (``interpret=True``), on the cases of
 tests/test_pallas_rt.py and on ``models.scenes.CLUSTER_CHECK_SCENES``; the
-clusters are carried over with ``interop.clusters_from_reference``.
+clusters are carried over with ``interop.clusters_from_reference``.  The
+clustered closest hit meets groups of clusters, then their clusters, in a
+two-level order (``ops.cuda_rt.cluster_groups``); it is held to JAX at every
+group size of ``GROUP_SIZES``.
 
 Tolerances.  Miss masks and occlusion: equal (the JAX kernel gates a cluster
 for a whole 1,024-ray tile, the port for each ray; no ray of these cases
@@ -46,6 +49,10 @@ MESHES = {
 }
 QUERIES = [(name, q) for name in sorted(scenes.CLUSTER_CHECK_SCENES)
            for q in range(len(scenes.cluster_check_queries(name)[3]))]
+#: clusters a group: the sizes swept on the card (scripts/torch_rt_profile.py
+#: --cluster-group), 1 (a group a cluster: the one-level order) and 3 (a
+#: short last group)
+GROUP_SIZES = (1, 3, 4, 8, 16)
 
 
 def _t(a, device="cpu"):
@@ -54,13 +61,14 @@ def _t(a, device="cpu"):
     return torch.as_tensor(a, device=device)
 
 
-def _port_scene(verts, faces, max_tris, device="cpu"):
+def _port_scene(verts, faces, max_tris, device="cpu", group=None):
     """(tri arrays, clusters dict, flat records) built by the port alone."""
     tri = intersect.triangle_arrays(
         torch.as_tensor(verts, device=device),
         torch.as_tensor(np.asarray(faces, np.int64), device=device))
     clusters = cuda_rt.prepare_clusters(
-        *tri, bvh_mod.build_clusters(bvh_mod.build(verts, faces), max_tris))
+        *tri, bvh_mod.build_clusters(bvh_mod.build(verts, faces), max_tris),
+        group=group)
     return tri, clusters, cuda_rt.pack_records(*tri)
 
 
@@ -171,7 +179,7 @@ def test_queries_match_jax(name, q):
     jtri, jcl, clusters, flat = _jax_scene(verts, faces, max_tris)
     # what was carried over equals what the port builds itself
     tri, own, own_flat = _port_scene(verts, faces, max_tris)
-    for k in ("tri", "table", "visit", "order"):
+    for k in ("tri", "table", "visit", "group_table", "group_visit", "order"):
         assert torch.equal(own[k], clusters[k]), k
     assert torch.equal(own_flat, flat)
     jo, jd = jnp.asarray(oq), jnp.asarray(dq)
@@ -199,25 +207,32 @@ def test_queries_match_jax(name, q):
                                            interpret=True)
     want_flat = pallas_rt.closest_hit_pallas(jo, jd, *jtri, t_max=jtm,
                                              interpret=True)
-    got = cuda_rt.closest_hit_clustered(_t(oq), _t(dq), clusters,
-                                        t_max=_t(tm))
     got_flat = cuda_rt.closest_hit_pallas(_t(oq), _t(dq), flat, t_max=_t(tm))
     min_hits = {("ico3_c64", "unbounded"): 0.9, ("ico3_c64", "parked"): 0.6,
                 ("multi4_c32", "unbounded"): 0.2}.get((name, label), 0.05)
-    hits = _check_closest(got, want, min_hits)
     _check_closest(got_flat, want_flat, min_hits)
-    if label == "parked":
-        park = np.arange(oq.shape[0]) % 3 == 0
-        assert not hits[park].any()
-    if label == "axis_parallel":
-        assert (dq == 0).any(axis=1).mean() > 0.6 and hits.any()
-        assert not torch.isnan(torch.stack(got[1:])).any()
-    # the clustered query against the port's flat one: the same arithmetic,
-    # so wherever the prims agree every output is exactly equal; where they
-    # differ the hit is a tie across clusters
-    ties = scenes.check_clustered_equals_flat(
-        [x.numpy() for x in got], [x.numpy() for x in got_flat])
-    assert ties <= 0.01 * hits.sum()
+    # the clustered query at every group size (the default one carried over
+    # from JAX): the groups change the order in which clusters are met
+    for group in (None,) + GROUP_SIZES:
+        mine = clusters if group is None else cuda_rt.pack_clusters(
+            clusters["tri"], np.asarray(jcl["aabb"]), np.asarray(jcl["first"]),
+            np.asarray(jcl["count"]), np.asarray(jcl["order"]), "cpu",
+            group=group)
+        got = cuda_rt.closest_hit_clustered(_t(oq), _t(dq), mine,
+                                            t_max=_t(tm))
+        hits = _check_closest(got, want, min_hits)
+        if label == "parked":
+            park = np.arange(oq.shape[0]) % 3 == 0
+            assert not hits[park].any()
+        if label == "axis_parallel":
+            assert (dq == 0).any(axis=1).mean() > 0.6 and hits.any()
+            assert not torch.isnan(torch.stack(got[1:])).any()
+        # the clustered query against the port's flat one: the same
+        # arithmetic, so wherever the prims agree every output is exactly
+        # equal; where they differ the hit is a tie across clusters
+        ties = scenes.check_clustered_equals_flat(
+            [x.numpy() for x in got], [x.numpy() for x in got_flat])
+        assert ties <= 0.01 * hits.sum()
 
 
 def _two_clusters():
@@ -273,6 +288,139 @@ def test_visit_table_is_near_to_far():
     assert visit[0][0] == visit[7][-1] and visit[0][-1] == visit[7][0]
 
 
+def _mesh_clusters(mesh, group):
+    verts, faces = MESHES[mesh]()
+    cl = bvh_mod.build_clusters(bvh_mod.build(verts, faces), 32)
+    rows = torch.zeros((len(cl["order"]), cuda_rt.RECORD_WIDTH))
+    return cl, cuda_rt.pack_clusters(rows, cl["aabb"], cl["first"],
+                                     cl["count"], cl["order"], "cpu",
+                                     group=group)
+
+
+def _centre_keys(box):
+    """(8, n) float32: each box's centre on each octant's sign vector, as
+    octant_visit_table computes it."""
+    box = np.asarray(box, np.float32)
+    cen = (box[:, 0:3] + box[:, 3:6]) * np.float32(0.5)
+    signs = np.array([[1.0 if q & (1 << k) else -1.0 for k in range(3)]
+                      for q in range(8)], np.float32)
+    return np.stack([s[0] * cen[:, 0] + s[1] * cen[:, 1] + s[2] * cen[:, 2]
+                     for s in signs])
+
+
+@pytest.mark.parametrize("group", GROUP_SIZES)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_group_boxes_hold_their_clusters(mesh, group):
+    """A group is ``group`` consecutive clusters (the last may be shorter);
+    its box is exactly the float32 min / max of their boxes, so it contains
+    each of them with no rounding."""
+    cl, packed = _mesh_clusters(mesh, group)
+    C = len(cl["first"])
+    G = -(-C // group)
+    gt = packed["group_table"].numpy()
+    assert gt.shape == (G, 8) and packed["num_groups"] == G
+    assert packed["group_visit"].shape == (8, G)
+    first, count = gt[:, 6:8].view(np.int32).T
+    np.testing.assert_array_equal(first, np.arange(G) * group)
+    assert count.sum() == C and (count >= 1).all()
+    box = cl["aabb"][:, :6]
+    for g in range(G):
+        members = box[first[g]:first[g] + count[g]]
+        assert (gt[g, 0:3] <= members[:, 0:3]).all()
+        assert (gt[g, 3:6] >= members[:, 3:6]).all()
+        np.testing.assert_array_equal(gt[g, 0:3], members[:, 0:3].min(0))
+        np.testing.assert_array_equal(gt[g, 3:6], members[:, 3:6].max(0))
+
+
+@pytest.mark.parametrize("group", GROUP_SIZES)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_visit_order_is_two_level(mesh, group):
+    """Each octant's row of ``visit`` lists every cluster once: the groups
+    in the row of ``group_visit`` (near to far by their boxes' centres), and
+    inside each group its clusters near to far by their own centres, equal
+    keys in ascending id."""
+    cl, packed = _mesh_clusters(mesh, group)
+    C = len(cl["first"])
+    visit = packed["visit"].numpy()
+    gvisit = packed["group_visit"].numpy()
+    gt = packed["group_table"].numpy()
+    count = gt[:, 7].view(np.int32)
+    np.testing.assert_array_equal(
+        gvisit, cuda_rt.octant_visit_table(gt[:, :6]))
+    ckey, gkey = _centre_keys(cl["aabb"]), _centre_keys(gt)
+    for q in range(8):
+        assert sorted(visit[q].tolist()) == list(range(C))
+        assert sorted(gvisit[q].tolist()) == list(range(len(count)))
+        assert (np.diff(gkey[q][gvisit[q]]) >= 0).all()
+        # the row, cut at the group sizes in visit order: the groups' members
+        runs = np.split(visit[q], np.cumsum(count[gvisit[q]])[:-1])
+        for g, run in zip(gvisit[q], runs):
+            assert (run // group == g).all()
+            k = ckey[q][run]
+            assert ((np.diff(k) > 0) | ((np.diff(k) == 0)
+                                        & (np.diff(run) > 0))).all()
+    if group == 1:      # a group a cluster: the one-level order
+        np.testing.assert_array_equal(
+            visit, cuda_rt.octant_visit_table(cl["aabb"]))
+
+
+@pytest.mark.parametrize("group", GROUP_SIZES)
+def test_group_gate_changes_no_result(group):
+    """The clustered closest hit with its group gate and with every group
+    box opened to all of space (the clusters gated alone, in the same
+    order): the same bits, and fewer cluster slab tests with the gate."""
+    verts, faces, max_tris, queries = scenes.cluster_check_queries(
+        "ico3_c64")
+    _, clusters, _ = _port_scene(verts, faces, max_tris, group=group)
+    gt = clusters["group_table"].clone()
+    gt[:, 0:3], gt[:, 3:6] = -np.inf, np.inf
+    open_groups = {**clusters, "group_table": gt}
+    for label, kind, oq, dq, tm in queries:
+        gated, opened = {}, {}
+        got = cuda_rt.closest_hit_clustered_reference(
+            _t(oq), _t(dq), clusters, _t(tm), stats=gated)
+        want = cuda_rt.closest_hit_clustered_reference(
+            _t(oq), _t(dq), open_groups, _t(tm), stats=opened)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), label
+        assert opened["groups_entered"] == opened["group_slab_tests"]
+        assert gated["slab_tests"] <= opened["slab_tests"]
+        assert gated["tri_tests"] == opened["tri_tests"]
+
+
+def test_group_level_cuts_slab_tests_on_small_scene():
+    """The 12,032-triangle sphere field of the small-scene frame (302
+    clusters of <= 64): on a sample of its 256x256 primary rays the group
+    and cluster slab tests a ray fall far under C, and the hits hold to
+    the one-level order's (group 1) with ties only."""
+    from skybox_rt_tpu_torch.geom import cgltrace
+
+    verts, faces, _ = scenes.sphere_field(copies=9, subdiv=3)
+    tri = intersect.triangle_arrays(
+        torch.as_tensor(verts), torch.as_tensor(np.asarray(faces, np.int64)))
+    cl = bvh_mod.build_clusters(bvh_mod.build(verts, faces, method="sah"), 64)
+    with np.load(f"{cgltrace.DATA_DIR}/rt_small_256.npz") as z:
+        o, d = _t(z["o"][::16].copy()), _t(z["d"][::16].copy())
+    R = o.shape[0]
+    one = cuda_rt.closest_hit_clustered(o, d, cuda_rt.prepare_clusters(
+        *tri, cl, group=1))
+    clusters = cuda_rt.prepare_clusters(*tri, cl)
+    C = clusters["num_clusters"]
+    assert C == 302
+    assert clusters["num_groups"] == -(-C // cuda_rt.CLUSTER_GROUP)
+    stats = {}
+    got = cuda_rt.closest_hit_clustered_reference(o, d, clusters,
+                                                  stats=stats)
+    slabs = (stats["group_slab_tests"] + stats["slab_tests"]) / R
+    assert slabs < C / 4, stats
+    assert stats["group_slab_tests"] == clusters["num_groups"] * R
+    hits = (got[0] >= 0).numpy()
+    assert hits.mean() > 0.3
+    ties = scenes.check_clustered_equals_flat(
+        [x.numpy() for x in got], [x.numpy() for x in one])
+    assert ties <= 0.01 * hits.sum()
+
+
 def test_wrappers_reject_bad_inputs():
     verts, faces, max_tris, queries = scenes.cluster_check_queries(
         "multi4_c32")
@@ -302,10 +450,12 @@ def test_wrappers_reject_bad_inputs():
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_on_card():
+@pytest.mark.parametrize("group", GROUP_SIZES)
+def test_kernels_match_plain_on_card(group):
     """Each of the three kernels against its plain version on the card:
     every output equal bit for bit (same operations in the same per-ray
-    order, no fused multiply-add), and their launches counted."""
+    order, no fused multiply-add), and their launches counted, at every
+    group size."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU build")
     dev = torch.device("cuda")
@@ -313,7 +463,8 @@ def test_kernels_match_plain_on_card():
     launched = [0, 0, 0]
     for name in sorted(scenes.CLUSTER_CHECK_SCENES):
         verts, faces, max_tris, queries = scenes.cluster_check_queries(name)
-        _, clusters, flat = _port_scene(verts, faces, max_tris, device=dev)
+        _, clusters, flat = _port_scene(verts, faces, max_tris, device=dev,
+                                        group=group)
         for label, kind, oq, dq, tm in queries:
             oq, dq, tm = _t(oq, dev), _t(dq, dev), _t(tm, dev)
             if kind == "any":
@@ -345,7 +496,7 @@ def test_kernels_match_plain_on_card():
     # more clusters than the shared-memory stage holds: the tables are read
     # from global memory
     verts, faces = scenes.icosphere(subdiv=4)
-    _, clusters, _ = _port_scene(verts, faces, 4, device=dev)
+    _, clusters, _ = _port_scene(verts, faces, 4, device=dev, group=group)
     assert clusters["num_clusters"] > 768
     o, d = scenes.aimed_rays(3000, seed=9)
     # all of one octant, so that the plain version walks one row of the table

@@ -6,10 +6,12 @@ held to ``pallas_rt.closest_hit_bvh`` / ``any_hit_bvh`` run as the JAX
 package's own tests run them on the CPU (``interpret=True``), on the scenes
 of tests/test_pallas_rt.py (multi-sphere, tri_block 32 and 16, per-ray t_max,
 parked rays, scalar and per-ray any-hit t_max), the blocks carried over with
-``interop.bvh_blocks_from_reference`` (the JAX package has no leaf table,
-so the closest-hit queries run on the port's own blocks, held equal to the
-carried ones, with the leaves of rt.bvh.build_block_leaves at every leaf size
-swept on the card).
+``interop.bvh_blocks_from_reference``.  The JAX package has no leaf table, so
+the queries run on the port's own blocks, held equal to the carried ones,
+with the leaves of rt.bvh.build_block_leaves at every leaf size from 1 to 32
+(the JAX any hit gates whole blocks, the port's the leaves: a leaf box's
+rounded slab test could cull a graze that the block's let in; no ray of
+these cases differs, and none may).
 
 Tolerances.  Miss masks: equal.  t: rtol 1e-5.  u, v: atol 1e-4 where the
 prims agree: XLA's CPU code contracts multiply-adds and eager torch does not,
@@ -40,8 +42,8 @@ torch.set_num_threads(1)
 
 SCENES = scenes.BVH_CHECK_SCENES
 #: the leaf sizes swept on the card (scripts/torch_rt_profile.py
-#: --leaf-tris), and 4, which splits the 16-slot blocks in four
-LEAF_SIZES = (4, 8, 16, 32)
+#: --leaf-tris), and 1, 2 and 4, which split the 16-slot blocks finer
+LEAF_SIZES = (1, 2, 4, 8, 16, 32)
 
 
 def _port_blocks(name, device="cpu", leaf_tris=tracer.BVH_LEAF_TRIS):
@@ -57,6 +59,17 @@ def _port_blocks(name, device="cpu", leaf_tris=tracer.BVH_LEAF_TRIS):
 
 def _t(a, device="cpu"):
     return None if a is None else torch.as_tensor(a, device=device)
+
+
+def _reverse_leaves(blocks):
+    """A copy of the blocks dict whose leaf table lists every block's leaves
+    in descending order (pack_blocks refuses that order; the any-hit query
+    reads each leaf's own first slot and count, so it takes it)."""
+    rng = blocks["leaf_range"].tolist()
+    rows = torch.cat([torch.arange(k1 - 1, k0 - 1, -1)
+                      for k0, k1 in zip(rng[:-1], rng[1:])])
+    table = blocks["leaf_table"]
+    return {**blocks, "leaf_table": table[rows.to(table.device)].contiguous()}
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -90,13 +103,14 @@ def test_plain_matches_jax_pallas(name):
                 jnp.asarray(oq), jnp.asarray(dq), jblocks,
                 t_max=tm if np.ndim(tm) == 0 else jnp.asarray(tm),
                 interpret=True))
-            got = cuda_rt.any_hit_bvh(_t(oq), _t(dq), blocks,
-                                      t_max=_t(tm)).numpy()
-            assert got.dtype == np.bool_
-            # equal; no count of differing rays is allowed (a ray that ever
-            # differs has to be shown to be a boundary case here)
-            np.testing.assert_array_equal(got, want)
-            assert 0 < got.mean() < 1
+            assert 0 < want.mean() < 1
+            for lt, leafy in own.items():
+                got = cuda_rt.any_hit_bvh(_t(oq), _t(dq), leafy,
+                                          t_max=_t(tm)).numpy()
+                assert got.dtype == np.bool_
+                # equal; no count of differing rays is allowed (a ray that
+                # ever differs has to be shown to be a boundary case here)
+                np.testing.assert_array_equal(got, want, err_msg=f"{lt}")
             continue
         p_w, t_w, u_w, v_w = (np.asarray(x) for x in pallas_rt.closest_hit_bvh(
             jnp.asarray(oq), jnp.asarray(dq), jblocks,
@@ -123,17 +137,19 @@ def test_plain_matches_jax_pallas(name):
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_plain_matches_bruteforce_and_any_block_order(name, leaf_tris):
     """The plain versions against the port's all-pairs oracle (same
-    arithmetic, so exactly equal), and over the blocks in reverse."""
+    arithmetic, so exactly equal), over the blocks in reverse, and for the
+    any hit with every block's leaves met in reverse."""
     tri, blocks, queries = _port_blocks(name, leaf_tris=leaf_tris)
     rev = range(blocks["num_blocks"] - 1, -1, -1)
     for kind, oq, dq, tm in queries:
         oq, dq = _t(oq), _t(dq)
         if kind == "any":
             want = intersect.any_hit_bruteforce(oq, dq, *tri, t_max=_t(tm))
-            for order in (None, rev):
-                got = cuda_rt.any_hit_bvh_reference(oq, dq, blocks, _t(tm),
-                                                    block_order=order)
-                assert torch.equal(got, want)
+            for leafy in (blocks, _reverse_leaves(blocks)):
+                for order in (None, rev):
+                    got = cuda_rt.any_hit_bvh_reference(
+                        oq, dq, leafy, _t(tm), block_order=order)
+                    assert torch.equal(got, want)
             continue
         want = intersect.closest_hit_bruteforce(
             oq, dq, *tri, t_max=np.inf if tm is None else _t(tm))
@@ -182,6 +198,32 @@ def test_tie_rule_lowest_slot_wins():
         assert (u[1].item(), v[1].item()) == (0.0, 0.0)
 
 
+def test_any_hit_stops_at_first_hit_and_counts():
+    """The any hit over leaves: a ray stops at its first hit in the order
+    the walk meets leaves, and the counts say what it tested.  Block 0
+    holds a far triangle (slot 0, z = -1, its own leaf) and a near one
+    (slot 1, z = 0); block 1 the near one again (slot 2)."""
+    blocks = _duplicate_blocks(_duplicate_leaves())
+    o = torch.tensor([[0.25, 0.25, 1.0]] * 3)
+    d = torch.tensor([[0.0, 0.0, -1.0]] * 3)
+    tmax = torch.tensor([2.5, 1.5, 0.5])
+    stats = {}
+    occ = cuda_rt.any_hit_bvh_reference(o, d, blocks, tmax, stats=stats)
+    assert occ.tolist() == [True, True, False]
+    # ray 0 stops at slot 0 (leaf 0 passes at t = 2 < 2.5); ray 1's gate
+    # culls leaf 0 (t = 2 > 1.5) and it stops at slot 1, where a whole-block
+    # test would have tested slot 0 too; ray 2 enters no block
+    assert stats == {"blocks_entered": 2, "slab_tests": 3, "slab_pass": 2,
+                     "tri_tests": 2, "block_tri_tests": 3}
+    # leaves met in reverse: both rays stop at slot 1, at the first leaf
+    stats = {}
+    occ = cuda_rt.any_hit_bvh_reference(o, d, _reverse_leaves(blocks), tmax,
+                                        stats=stats)
+    assert occ.tolist() == [True, True, False]
+    assert stats == {"blocks_entered": 2, "slab_tests": 2, "slab_pass": 2,
+                     "tri_tests": 2, "block_tri_tests": 3}
+
+
 def test_zero_direction_and_parked_rays_miss_without_nan():
     _, blocks, queries = _port_blocks("multi4_tb32")
     o = torch.as_tensor(queries[0][1][:8].copy())
@@ -203,14 +245,13 @@ def test_wrappers_reject_bad_inputs():
         cuda_rt.closest_hit_bvh(o[:, :2], d[:, :2], blocks)
     with pytest.raises(ValueError):
         cuda_rt.any_hit_bvh(o.to("meta"), d.to("meta"), blocks)
-    with pytest.raises(ValueError):        # a pyramid deeper than the stack
+    with pytest.raises(ValueError):        # deeper than the kernels take
         cuda_rt.pack_blocks(
             np.zeros((1, 9), np.float32), np.ones(1, np.int32),
             np.zeros(1, np.int32),
             [np.zeros((1, 6), np.float32)] * (cuda_rt.MAX_LEVELS + 1),
             1, 1, "cpu")
-    # no leaf table: the closest-hit queries refuse the blocks on any device,
-    # the any-hit query (whole blocks) takes them
+    # no leaf table: every query refuses the blocks, on any device
     bare = _duplicate_blocks()
     o2 = torch.tensor([[0.25, 0.25, 1.0]])
     d2 = torch.tensor([[0.0, 0.0, -1.0]])
@@ -219,7 +260,10 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="leaf table"):
         cuda_rt.closest_hit_bvh_after(o2, d2, bare, torch.zeros(1),
                                       torch.zeros(1, dtype=torch.int32))
-    assert cuda_rt.any_hit_bvh(o2, d2, bare, t_max=2.0).tolist() == [True]
+    with pytest.raises(ValueError, match="leaf table"):
+        cuda_rt.any_hit_bvh(o2, d2, bare, t_max=2.0)
+    leafy = _duplicate_blocks(_duplicate_leaves())
+    assert cuda_rt.any_hit_bvh(o2, d2, leafy, t_max=2.0).tolist() == [True]
     # leaves that do not tile their blocks' slots in ascending order
     for bad in ({"first": np.array([1, 0, 2])},          # descending
                 {"count": np.array([1, 2, 1])},          # past the block
@@ -234,7 +278,7 @@ def test_wrappers_reject_bad_inputs():
 def test_kernels_match_plain_on_card(leaf_tris):
     """Kernel against plain version on the card: every output equal bit for
     bit (same operations in the same order, no fused multiply-add), at every
-    leaf size."""
+    leaf size; the any hit also with its leaves met in reverse."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU build")
     dev = torch.device("cuda")
@@ -247,10 +291,13 @@ def test_kernels_match_plain_on_card(leaf_tris):
         for kind, oq, dq, tm in queries:
             oq, dq, tm = _t(oq, dev), _t(dq, dev), _t(tm, dev)
             if kind == "any":
-                got = cuda_rt.any_hit_bvh(oq, dq, blocks, t_max=tm)
                 want = cuda_rt.any_hit_bvh_reference(oq, dq, blocks, tm)
-                torch.cuda.synchronize()
-                assert torch.equal(got, want), name
+                # and with every block's leaves met in reverse
+                for leafy in (blocks, _reverse_leaves(blocks)):
+                    got = cuda_rt.any_hit_bvh(oq, dq, leafy, t_max=tm)
+                    torch.cuda.synchronize()
+                    assert got.dtype == torch.bool
+                    assert torch.equal(got, want), name
                 continue
             got = cuda_rt.closest_hit_bvh(oq, dq, blocks, t_max=tm)
             want = cuda_rt.closest_hit_bvh_reference(oq, dq, blocks, tm)
