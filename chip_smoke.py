@@ -19,16 +19,24 @@ exits non-zero, and only a run where every phase passed prints the final
   3. kernel  — the CUDA visibility kernel against its plain torch version,
                bit for bit: every draw of the synthetic trace at 256x256,
                fused and K-slot, tile_logsize 3..6, stencil/depth OM
-               variants over seeded ds words, and the textured draw at
-               1024x1024
+               variants over seeded ds words, the textured draw at
+               1024x1024, and seeded random edge coefficients whose values
+               wrap (cuda_raster.wrapping_case) at every tile size, K 0 and
+               4, under a scissor that leaves some patches outside and cuts
+               others
   4. frame   — the 256x256 frame through render_trace and compile_frame,
                bit-equal to the JAX package's committed framebuffer and to
                the port's immediate oracle on the card; the kernel's launch
                count on that run is checked
   5. draw1024 — the textured draw alone at 1024x1024 against its
                committed sha256
-  6. timing  — CUDA events, median of 20 after warm-up: kernel vs plain
-               pass 1 at 256x256 and 1024x1024, and the whole 256x256 frame
+  6. timing  — CUDA events, median of 20 after warm-up: kernel (around the
+               call, and as a CUDA graph's replay: ``graph_ms``) vs plain
+               pass 1 at 256x256 and 1024x1024, beside the pixel steps that
+               the warps' cull keeps (``steps``, counted with the plain
+               predicate cuda_raster.patch_culled), the cull tests, every
+               pixel's steps (``all_steps``, ``all_steps_ops``) and the
+               launch's blocks; and the whole 256x256 frame
   7. rt_kernel_vs_plain — the closest-hit and any-hit BVH kernels against
                their plain torch versions, bit for bit: the small check
                scenes whole at leaf sizes 1, 2, 4, 8, 16 and 32, then
@@ -64,8 +72,8 @@ exits non-zero, and only a run where every phase passed prints the final
                group size on 65,536 rays of each of the six launches of its
                real 1024x1024 frame, and on the whole primary and
                primary-shadow launches, with group and cluster slab tests a
-               ray.  On the same rays the clustered kernels against the
-               flat one: occlusion and miss masks equal, every output equal
+               ray (the any hit's too: it walks the same groups).  On the
+               same rays the clustered kernels against the flat one: occlusion and miss masks equal, every output equal
                where the prims agree, t within rtol 1e-5 where they do not
                (ties across clusters, under 1 % of the hits)
  12. rt_small_frame_256 — make_frame_fn with the default engine at 256x256,
@@ -224,10 +232,11 @@ block size, leaf size or cluster table).  The ray queries' ``ms`` and
 ``bound_ms`` are those of the primary launch (the any-hit kernels': the
 primary shadow launch); ``launch_ms``, ``frame_ms`` and ``frame_bound_ms``
 cover the three launches of a frame; ``graph_ms`` and ``frame_graph_ms``
-time the BVH-block and clustered launches as CUDA graph replays, without
-the host's work around the call.  ``max_abs_err`` is the largest |kernel -
-plain| over every output of the comparison run (measured; a run that prints
-the line measured 0, since any difference raises), and the ray queries add
+time the BVH-block and clustered launches, and pass 1's 256x256 launch, as
+CUDA graph replays, without the host's work around the call.
+``max_abs_err`` is the largest |kernel - plain| over every output of the
+comparison run (measured; a run that prints the line measured 0, since any
+difference raises), and the ray queries add
 ``rays_differ`` or ``rays_not_bit_equal``, the count of rays behind it.
 The training path's two entries give the kernel on the 1024x1024 step's
 tensors; ``launches`` are those of the ten SGD steps.  ``diff_accumulate``'s
@@ -276,9 +285,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 33.5e12
 # Operations of the visibility kernel's inner loop (csrc/raster_visibility.cu,
-# visibility_kernel), counted from its body.  Every pixel does for every real
-# prim of its tile: three edge functions (2 multiplies + 2 adds each, 12),
-# three sign compares and three ands with the scissor flag.
+# visibility_kernel), counted from its body.  Every pixel does for every prim
+# that the cull keeps for its patch: three edge functions (2 multiplies + 2
+# adds each, 12), three sign compares and three ands with the scissor flag.
 RASTER_STEP_INT_OPS = 18
 # A covered pixel (fused outputs, depth-stencil test on the shaded z) adds,
 # in float32: 3 int->float + 3 multiplies, 2 adds, 1 divide, 2 multiplies by
@@ -290,6 +299,11 @@ RASTER_COVERED_FLOAT_OPS = 23
 # of the stencil op, the op itself 2, shift + or of the result, 2 + 3 for the
 # write mask, 4 for the masked merge: 23).
 RASTER_COVERED_INT_OPS = 31
+# The cull of one prim against one warp's patch, in int32: per edge 2 sign
+# tests, 4 corner selects, 4 widening multiplies, 4 64-bit adds (2 each), 2
+# 64-bit shifts (2 each), a 64-bit compare (2) and the parity and its and
+# (26); the or of the three edges (2)
+RASTER_CULL_INT_OPS = 80
 # float operations of one Möller–Trumbore test (csrc/rt_bvh.cu mt_one and
 # the caller's t < bound: two cross products 18, four dot products 20, tvec
 # 3, 1 divide, 3 multiplies by 1/det, u + v, |det|, 6 compares) and of one
@@ -914,18 +928,17 @@ def small_phases(dev, card) -> list:
 
     def launch_bounds(kind, o, d, tm, tri_tests, slab_tests):
         """Bounds of one launch of the clustered and of the flat kernel:
-        rays, records and tables (the closest hit's group tables too) read
-        once, the outputs (prim, t, u, v, or one occlusion byte a ray)
-        written once, against the tests the plain version counted (slab
-        tests of groups and clusters; flat: every triangle for every
-        ray)."""
+        rays, records and the cluster and group tables read once, the
+        outputs (prim, t, u, v, or one occlusion byte a ray) written once,
+        against the tests the plain version counted (slab tests of groups
+        and clusters; flat: every triangle for every ray)."""
         R = o.shape[0]
         written = R if kind == "any" else 16 * R
         moved = nbytes(o, d, tm, clusters["tri"], clusters["table"],
-                       clusters["visit"]) + written
+                       clusters["visit"], clusters["group_table"],
+                       clusters["group_visit"]) + written
         if kind == "closest":
-            moved += nbytes(clusters["order"], clusters["group_table"],
-                            clusters["group_visit"])
+            moved += nbytes(clusters["order"])
         return (bound(moved, tri_tests * MT_OPS + slab_tests * SLAB_OPS),
                 bound(nbytes(o, d, tm, flat) + 16 * R, R * P * MT_OPS))
 
@@ -933,8 +946,7 @@ def small_phases(dev, card) -> list:
         return stats["slab_tests"] + stats.get("group_slab_tests", 0)
 
     def per_ray(stats, rays):
-        """Tests a ray: the groups' (closest hit), the clusters', the
-        triangles'."""
+        """Tests a ray: the groups', the clusters', the triangles'."""
         return {"group_slab_tests_per_ray":
                     stats.get("group_slab_tests", 0) / rays,
                 "groups_entered_per_ray":
@@ -2600,10 +2612,11 @@ def main() -> int:
         return max_abs_err(got, want)
 
     # 3. kernel vs plain version
-    err, cases = 0, 0
+    err, cases, states = 0, 0, {}
     for d in range(4):
         for tls in cuda_raster.TILE_LOGSIZES:
             rs, args, b = draw_inputs(SIZE, SIZE, tls, d)
+            states[d] = rs
             for K in (0, 4, 16):
                 err = max(err, compare(rs, args, tls, K))
                 cases += 1
@@ -2633,7 +2646,22 @@ def main() -> int:
     for K in (0, 4):
         err = max(err, compare(rs1k, args1k, 5, K))
         cases += 1
-    phase("kernel_vs_plain", cases=cases, max_abs_err=err, equal=True)
+    # edge values that wrap (seeded random coefficients), at every tile
+    # size, under the depth test and the stencil draw's OM, with a scissor
+    # that leaves some patches of the corner tiles outside and cuts others
+    wrapping = 0
+    for tls in cuda_raster.TILE_LOGSIZES:
+        args = cuda_raster.wrapping_case(tls, seed=tls, device=dev)
+        for d in (0, 3):
+            rs0 = states[d]
+            rs = RenderState(flags=rs0.flags, om=rs0.om, tex=rs0.tex,
+                             scissor=cuda_raster.WRAP_SCISSOR)
+            for K in (0, 4):
+                err = max(err, compare(rs, args, tls, K))
+                cases += 1
+                wrapping += 1
+    phase("kernel_vs_plain", cases=cases, wrapping_cases=wrapping,
+          max_abs_err=err, equal=True)
 
     # 4. the frame through the port's entry points
     with np.load(os.path.join(cgltrace.DATA_DIR,
@@ -2698,26 +2726,43 @@ def main() -> int:
     for label, (rs, args, b, tls) in {
             "pass1_256": draw_inputs(SIZE, SIZE, 5, TEXTURED_DRAW) + (5,),
             "pass1_1024": (rs1k, args1k, b1k, 5)}.items():
-        k_ms = median_ms(lambda: cuda_raster.visibility_tiles(
-            rs, *args, tls, fused=True))
+        def pass1():
+            return cuda_raster.visibility_tiles(rs, *args, tls, fused=True)
+        k_ms = median_ms(pass1)
         p_ms = median_ms(lambda: cuda_raster.visibility_tiles_reference(
             rs, *args, tls, fused=True), reps=5, warmup=1)
         T, M = b.tile_pids.shape
-        # each input read once, each of the four fused outputs written once;
-        # one prim step a pixel for every real entry of tile_pids, and the
-        # covered pixels' extra work for every step the plain version's
-        # coverage mask holds
-        steps = int((args[2] >= 0).sum()) << (2 * tls)
+        # each input read once, each of the four fused outputs written once.
+        # The warps' work: a cull test for every (patch, real prim) of a
+        # patch inside the scissor, one prim step a pixel for every prim the
+        # cull keeps (counted by the plain predicate), and the covered
+        # pixels' extra work for every step the plain version's coverage
+        # mask holds; ``all_steps_ops`` is the same without the cull (every
+        # pixel steps through every real prim of its tile)
+        steps, cull_tests, all_steps = cuda_raster.cull_counts(
+            args[0], args[2], args[3], tls, rs.scissor)
         covered = int(sum(cov.sum() for _, cov, *_ in cuda_raster.prim_steps(
             rs, *args, tls, need_grad=False)))
-        timings[label] = {"kernel_ms": k_ms, "plain_ms": p_ms, "T": T,
-                          "M": M, "pixels": T << (2 * tls),
+        covered_ops = covered * (RASTER_COVERED_FLOAT_OPS
+                                 + RASTER_COVERED_INT_OPS)
+        patches = (1 << 2 * tls) // (cuda_raster.PATCH_W
+                                     * cuda_raster.PATCH_H)
+        timings[label] = {"kernel_ms": k_ms, "graph_ms": graph_ms(pass1),
+                          "plain_ms": p_ms, "T": T, "M": M,
+                          "blocks": T * patches // min(
+                              patches, cuda_raster.PATCH_WARPS),
+                          "pixels": T << (2 * tls),
                           "kernel_mpix_per_s": (T << (2 * tls)) / k_ms / 1e3,
-                          "steps": steps, "covered_steps": covered,
+                          "steps": steps, "all_steps": all_steps,
+                          "steps_kept": steps / all_steps,
+                          "cull_tests": cull_tests, "covered_steps": covered,
+                          "all_steps_ops": all_steps * RASTER_STEP_INT_OPS
+                          + covered_ops,
                           "bound": bound(
                               nbytes(*args) + 4 * nbytes(args[4]),
                               covered * RASTER_COVERED_FLOAT_OPS,
                               steps * RASTER_STEP_INT_OPS
+                              + cull_tests * RASTER_CULL_INT_OPS
                               + covered * RASTER_COVERED_INT_OPS)}
     frame_ms = median_ms(lambda: frame(arrays))
     timings["frame_256"] = {
@@ -2737,8 +2782,8 @@ def main() -> int:
         "source": "skybox_rt_tpu_torch/csrc/raster_visibility.cu",
         "replaces": "skybox_rt_tpu/ops/pallas_raster.py:63",
         "launches": launches, "max_abs_err": err,
-        "ms": p256["kernel_ms"], "plain_ms": p256["plain_ms"],
-        **p256["bound"],
+        "ms": p256["kernel_ms"], "graph_ms": p256["graph_ms"],
+        "plain_ms": p256["plain_ms"], **p256["bound"],
         "library_ms": None,     # no single PyTorch call computes this
         }] + rt_entries}))
     print(json.dumps({"ok": True, "device": {

@@ -512,7 +512,7 @@ def main(argv) -> int:
                       "triangles": int(scene.faces.shape[0]),
                       "card": card}), flush=True)
 
-    profile_line(run, {"pallas": "_clustered_kernel",
+    profile_line(run, {"pallas": "clustered_kernel<",
                        "pallas_bvh": "bvh_walk_kernel"}.get(
                            engine, "closest_hit_blocks_kernel"), card)
     if args.engine:

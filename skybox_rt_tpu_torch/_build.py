@@ -54,8 +54,9 @@ _SIGNATURES = {
     # R, prim t u v, the stream
     "skybox_rt_closest_hit_clustered": [_P] * 9 + [_I, _I, _F, _I]
                                        + [_P] * 5,
-    # o d tmax tri table visit, C, t_min, R, occ, the stream
-    "skybox_rt_any_hit_clustered": [_P] * 6 + [_I, _F, _I] + [_P] * 2,
+    # o d tmax tri table visit group_table group_visit, C, G, t_min, R,
+    # occ, the stream
+    "skybox_rt_any_hit_clustered": [_P] * 8 + [_I, _I, _F, _I] + [_P] * 2,
     # o d tmax tri, P, t_min, R, prim t u v, the stream
     "skybox_rt_closest_hit_flat": [_P] * 4 + [_I, _F, _I] + [_P] * 5,
     # o d tmax tri aabb order, NB P tri_block, t_min, R, prim t u v, the

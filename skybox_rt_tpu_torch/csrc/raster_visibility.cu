@@ -5,14 +5,30 @@
 // computes the same function, not the TPU layout: no pre-gathered
 // (T, M, 16) records, no (ns, 128) lane tiling, no ts*ts % 128 restriction.
 //
-// Design: one thread block per binned tile, one thread per pixel (a thread
-// owns 4 pixels at ts = 64).  The block walks tile_pids[t, 0:M] in order,
-// staging chunks of (edges[pid], zattr[pid]) records in shared memory;
-// each thread carries its pixels' state in registers — (dsw, win, dx, dy)
-// for opaque draws, (dsw, cnt) for blended ones, whose first K passing
-// pids go straight to slots[t, cnt, pixel].  The per-pixel loop keeps
-// submission order (the last passing prim wins, slots fill in order) with
-// no atomics.  The kernel writes global pids.
+// Design: a warp owns a patch of kPatchW x kPatchH = 32 pixels of one
+// binned tile, one pixel a lane, and a block holds kWarps warps of one tile;
+// the grid covers T x (patches of a tile / warps a block).  The block walks
+// tile_pids[t, 0:M] in order, staging chunks of (edges[pid], zattr[pid])
+// records in shared memory.  For each run of 32 staged prims, lane j tests
+// prim j against its warp's patch (edge_negative_on below); __ballot_sync
+// gives the prims that may cover the patch, and the warp walks those bits
+// in ascending order, so every pixel still meets its prims in submission
+// order.  Each lane carries its pixel's state in registers — (dsw, win,
+// dx, dy) for opaque draws, (dsw, cnt) for blended ones, whose first K
+// passing pids go straight to slots[t, cnt, pixel] — and the kernel writes
+// global pids, with no atomics.  A culled prim covers no pixel of the
+// patch, and an uncovered pixel neither updates its ds word nor wins, so
+// the cull changes no output bit.  A patch with no pixel inside the
+// scissor skips every prim and writes what it read.
+//
+// The cull is exact under the wrapping arithmetic: an edge's value at a
+// pixel is a*x + b*y + c (mod 2^32) read as int32.  In int64 the unwrapped
+// value is affine over the patch, so its least and largest values lo, hi
+// lie at corners, and every int64 of [lo, hi] wraps to a negative int32
+// when lo >> 31 == hi >> 31 (floor division) and that quotient is odd.  A
+// prim is culled when one of its edges is so; a bounding-box cull could cut
+// a fragment that lies beyond its prim's box (edge values that wrap), so
+// none is used.  ops/cuda_raster.patch_culled is the plain twin.
 //
 // Exactness (bit-equal to the JAX package and to the plain torch version):
 //   * edge sums a*x + b*y + c wrap mod 2^32: computed in uint32_t;
@@ -26,14 +42,16 @@
 //   * depth-stencil words are uint32_t throughout (stencil INVERT is a
 //     32-bit ~val shifted left by 24).
 //
-// What bounds it on the H100: per prim step each block reads one 48-byte
-// record, so memory traffic is small; the bound is the serial M loop times
-// the per-pixel ALU work (3 edges, an IEEE divide, two 64-bit products,
-// the ds test).  Only T blocks run — T = 24 for each sphere of the
-// synthetic trace at 256x256 with 32x32 tiles — so most of the 132 SMs sit
-// idle on small frames.  Making it fast
-// (splitting a tile's prim list across blocks, more tiles in flight) is
-// left to a later change.
+// What bounds it on the H100: memory traffic is small (a block reads one
+// 52-byte record a prim of its tile, from L2); the work is one cull test a
+// (patch, prim) and the pixel steps of the prims a patch keeps (8.8 % of all
+// pixel-prim steps on the synthetic trace's sphere draws at 256x256 with
+// 32x32 tiles).  A warp runs a kept prim's covered-pixel work (the divide,
+// the ds test) for all its lanes when one lane is covered, and a 256x256
+// draw has 768 warps, a few a scheduler, so the walk's dependent chain sets
+// the time (PERF.md).  The earlier design ran one block per tile (24 for a
+// sphere draw at 256x256) through every prim of the tile; the patches give
+// 8 blocks a 32x32 tile.
 #include <climits>
 #include <cstdint>
 
@@ -41,10 +59,14 @@
 
 namespace {
 
-constexpr int kChunk = 64;          // prim records staged per chunk
+constexpr int kChunk = 128;         // prim records staged per chunk
+constexpr int kRun = 32;            // prims culled together: one a lane
 constexpr int kRecWords = 12;       // 9 edge coefficients + 3 z-plane terms
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxPixPerThread = 4; // 64 * 64 pixels / 1024 threads
+constexpr int kRecStride = 13;      // odd: lane j's record in its own bank
+constexpr int kPatchW = 8;          // a warp's patch of pixels
+constexpr int kPatchH = 4;
+constexpr int kWarps = 4;           // warps (patches) a block
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr uint32_t kDepthMask = 0xFFFFFFu;
 constexpr int kDepthBits = 24;
 
@@ -151,121 +173,135 @@ __device__ __forceinline__ bool ds_step(const VisParams& p, uint32_t z,
   return passed;
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// Whether edge e = (a, b, c) is negative on every pixel of [x0, x1] x
+// [y0, y1] (the header's cull).
+__device__ __forceinline__ bool edge_negative_on(const int* e, long long x0,
+                                                 long long x1, long long y0,
+                                                 long long y1) {
+  const long long a = e[0], b = e[1], c = e[2];
+  const long long lo = c + (a >= 0 ? a * x0 : a * x1)
+                       + (b >= 0 ? b * y0 : b * y1);
+  const long long hi = c + (a >= 0 ? a * x1 : a * x0)
+                       + (b >= 0 ? b * y1 : b * y0);
+  const long long q = lo >> 31;
+  return q == (hi >> 31) && (q & 1);
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
 visibility_kernel(const VisParams p) {
-  __shared__ int s_rec[kChunk][kRecWords];
+  __shared__ int s_rec[kChunk][kRecStride];
   __shared__ int s_pid[kChunk];
 
   const int t = blockIdx.x;
   const int ts = 1 << p.tls;
   const int npix = ts * ts;
   const int nthr = blockDim.x;
-  const int ppt = npix / nthr;
+  const int lane = threadIdx.x & 31;
+  const int patch = blockIdx.y * (nthr >> 5) + (threadIdx.x >> 5);
+  const int pw = ts / kPatchW;                  // patches a row of the tile
+  const int lx0 = (patch % pw) * kPatchW;
+  const int ly0 = (patch / pw) * kPatchH;
+  const int q = (ly0 + (lane >> 3)) * ts + lx0 + (lane & 7);
   const int ox = p.tile_xy[2 * t] * ts;
   const int oy = p.tile_xy[2 * t + 1] * ts;
   const size_t tile_base = static_cast<size_t>(t) * npix;
 
-  uint32_t dsw[kMaxPixPerThread];
-  int win[kMaxPixPerThread], gdx[kMaxPixPerThread], gdy[kMaxPixPerThread];
-  int cnt[kMaxPixPerThread];
-  bool inside[kMaxPixPerThread];
-  uint32_t px[kMaxPixPerThread], py[kMaxPixPerThread];
+  const int x = ox + (q & (ts - 1));
+  const int y = oy + (q >> p.tls);
+  const uint32_t px = static_cast<uint32_t>(x);
+  const uint32_t py = static_cast<uint32_t>(y);
+  const bool inside = x >= p.sc_left && x < p.sc_right && y >= p.sc_top
+                      && y < p.sc_bottom;
+  const bool live = __any_sync(kFull, inside);
+  const long long cx0 = ox + lx0, cx1 = cx0 + kPatchW - 1;
+  const long long cy0 = oy + ly0, cy1 = cy0 + kPatchH - 1;
 
-#pragma unroll
-  for (int k = 0; k < kMaxPixPerThread; ++k) {
-    if (k < ppt) {
-      const int q = threadIdx.x + k * nthr;
-      const int x = ox + (q & (ts - 1));
-      const int y = oy + (q >> p.tls);
-      px[k] = static_cast<uint32_t>(x);
-      py[k] = static_cast<uint32_t>(y);
-      inside[k] = x >= p.sc_left && x < p.sc_right && y >= p.sc_top
-                  && y < p.sc_bottom;
-      dsw[k] = static_cast<uint32_t>(p.fb_ds[tile_base + q]);
-      win[k] = -1;
-      gdx[k] = 0;
-      gdy[k] = 0;
-      cnt[k] = 0;
-      for (int j = 0; j < p.K; ++j)
-        p.slots[(static_cast<size_t>(t) * p.K + j) * npix + q] = -1;
-    }
-  }
+  uint32_t dsw = static_cast<uint32_t>(p.fb_ds[tile_base + q]);
+  int win = -1, gdx = 0, gdy = 0, cnt = 0;
+  for (int j = 0; j < p.K; ++j)
+    p.slots[(static_cast<size_t>(t) * p.K + j) * npix + q] = -1;
 
   for (int base = 0; base < p.M; base += kChunk) {
     const int n = min(kChunk, p.M - base);
     __syncthreads();
-    for (int i = threadIdx.x; i < n; i += nthr) {
+    // word k of record i: one load a thread, neighbours on neighbouring
+    // words
+    for (int w = threadIdx.x; w < n * kRecWords; w += nthr) {
+      const int i = w / kRecWords;
+      const int k = w - i * kRecWords;
       const int pid = p.tile_pids[static_cast<size_t>(t) * p.M + base + i];
-      s_pid[i] = pid;
-      if (pid >= 0) {
-        for (int j = 0; j < 9; ++j)
-          s_rec[i][j] = p.edges[static_cast<size_t>(pid) * 9 + j];
-        for (int j = 0; j < 3; ++j)
-          s_rec[i][9 + j] = p.zattr[static_cast<size_t>(pid) * 3 + j];
-      }
+      if (k == 0) s_pid[i] = pid;
+      if (pid >= 0)
+        s_rec[i][k] = k < 9 ? p.edges[static_cast<size_t>(pid) * 9 + k]
+                            : p.zattr[static_cast<size_t>(pid) * 3 + k - 9];
     }
     __syncthreads();
-
-    for (int i = 0; i < n; ++i) {
-      const int pid = s_pid[i];
-      if (pid < 0) continue;        // padding: never covers, never writes
-      const int* r = s_rec[i];
-#pragma unroll
-      for (int k = 0; k < kMaxPixPerThread; ++k) {
-        if (k >= ppt) continue;
-        const int e0 = edge_eval(r + 0, px[k], py[k]);
-        const int e1 = edge_eval(r + 3, px[k], py[k]);
-        const int e2 = edge_eval(r + 6, px[k], py[k]);
-        // an uncovered pixel neither updates its ds word nor wins
-        if (!(e0 >= 0 && e1 >= 0 && e2 >= 0 && inside[k])) continue;
-
-        int ddx = 0, ddy = 0;
-        if (p.need_grad) {
-          const float f0 = fixed24_to_float(e0);
-          const float f1 = fixed24_to_float(e1);
-          const float f2 = fixed24_to_float(e2);
-          const float rcp = __fdiv_rn(1.0f, __fadd_rn(__fadd_rn(f0, f1), f2));
-          ddx = to_fixed24_x86(__fmul_rn(rcp, f0));
-          ddy = to_fixed24_x86(__fmul_rn(rcp, f1));
+    if (live) {               // else the patch skips every prim
+      for (int run = 0; run < n; run += kRun) {
+        // lane j culls prim run + j for the warp's patch; padding (pid -1)
+        // never covers
+        const int i = run + lane;
+        bool keep = false;
+        if (i < n && s_pid[i] >= 0) {
+          const int* e = s_rec[i];
+          keep = !(edge_negative_on(e + 0, cx0, cx1, cy0, cy1)
+                   || edge_negative_on(e + 3, cx0, cx1, cy0, cy1)
+                   || edge_negative_on(e + 6, cx0, cx1, cy0, cy1));
         }
-        bool upd = true;
-        if (p.ds_active) {
-          const uint32_t z = p.shade_z
-              ? static_cast<uint32_t>(imadd24(r[10], ddy,
-                                              imadd24(r[9], ddx, r[11])))
-              : 0u;                 // shader DEFAULTS z = 0
-          upd = ds_step(p, z, dsw[k]);
-        }
-        if (!upd) continue;
-        if (p.K > 0) {
-          if (cnt[k] < p.K) {
-            const int q = threadIdx.x + k * nthr;
-            p.slots[(static_cast<size_t>(t) * p.K + cnt[k]) * npix + q] = pid;
+        // the kept prims in ascending order: submission order
+        for (unsigned bits = __ballot_sync(kFull, keep); bits;
+             bits &= bits - 1) {
+          const int j = run + __ffs(bits) - 1;
+          const int pid = s_pid[j];
+          const int* r = s_rec[j];
+          const int e0 = edge_eval(r + 0, px, py);
+          const int e1 = edge_eval(r + 3, px, py);
+          const int e2 = edge_eval(r + 6, px, py);
+          // an uncovered pixel neither updates its ds word nor wins
+          if (!(e0 >= 0 && e1 >= 0 && e2 >= 0 && inside)) continue;
+
+          int ddx = 0, ddy = 0;
+          if (p.need_grad) {
+            const float f0 = fixed24_to_float(e0);
+            const float f1 = fixed24_to_float(e1);
+            const float f2 = fixed24_to_float(e2);
+            const float rcp =
+                __fdiv_rn(1.0f, __fadd_rn(__fadd_rn(f0, f1), f2));
+            ddx = to_fixed24_x86(__fmul_rn(rcp, f0));
+            ddy = to_fixed24_x86(__fmul_rn(rcp, f1));
           }
-          ++cnt[k];
-        } else {
-          win[k] = pid;
-          gdx[k] = ddx;
-          gdy[k] = ddy;
+          bool upd = true;
+          if (p.ds_active) {
+            const uint32_t z = p.shade_z
+                ? static_cast<uint32_t>(imadd24(r[10], ddy,
+                                                imadd24(r[9], ddx, r[11])))
+                : 0u;                 // shader DEFAULTS z = 0
+            upd = ds_step(p, z, dsw);
+          }
+          if (!upd) continue;
+          if (p.K > 0) {
+            if (cnt < p.K)
+              p.slots[(static_cast<size_t>(t) * p.K + cnt) * npix + q] = pid;
+            ++cnt;
+          } else {
+            win = pid;
+            gdx = ddx;
+            gdy = ddy;
+          }
         }
       }
     }
   }
 
-#pragma unroll
-  for (int k = 0; k < kMaxPixPerThread; ++k) {
-    if (k < ppt) {
-      const size_t o = tile_base + threadIdx.x + k * nthr;
-      p.dsw[o] = static_cast<int>(dsw[k]);
-      if (p.K > 0) {
-        p.cnt[o] = cnt[k];
-      } else {
-        p.win[o] = win[k];
-        if (p.fused) {
-          p.dx[o] = gdx[k];
-          p.dy[o] = gdy[k];
-        }
-      }
+  const size_t o = tile_base + q;
+  p.dsw[o] = static_cast<int>(dsw);
+  if (p.K > 0) {
+    p.cnt[o] = cnt;
+  } else {
+    p.win[o] = win;
+    if (p.fused) {
+      p.dx[o] = gdx;
+      p.dy[o] = gdy;
     }
   }
 }
@@ -320,8 +356,10 @@ extern "C" int skybox_visibility_tiles(
   p.s_fail = s_fail;
   p.s_writemask = s_writemask;
 
-  const int npix = 1 << (2 * tile_logsize);
-  const int nthr = npix < kMaxThreads ? npix : kMaxThreads;
-  visibility_kernel<<<T, nthr, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  const int patches = 1 << (2 * tile_logsize - 5);   // 32 pixels each
+  const int warps = patches < kWarps ? patches : kWarps;
+  const dim3 grid(T, patches / warps);
+  visibility_kernel<<<grid, warps * 32, 0,
+                      static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

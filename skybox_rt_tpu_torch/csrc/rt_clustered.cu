@@ -28,10 +28,10 @@
 //            entered clusters, the Möller–Trumbore hit with the lexicographic
 //            minimum (t, slot), slot = the record's row; the prim returned is
 //            order[slot].
-//   clustered any: whether any triangle hits with t_min < t < t_max[r]; far
-//            is the fixed t_max[r], so the answer does not depend on the
-//            visit order (the flattened row of the (8, C) table); the ray
-//            returns at its first hit.
+//   clustered any: whether any triangle hits with t_min < t < t_max[r]: the
+//            same two-level walk with far the fixed t_max[r], so the answer
+//            does not depend on the visit order; the ray returns at its
+//            first hit.
 //   flat closest: every triangle in ascending prim id under strict t <
 //            best t, so the lowest id wins equal t (the brute-force oracle).
 //
@@ -42,22 +42,21 @@
 // group's box contains the cluster's (min / max over the same floats),
 // subtraction and multiplication by one factor are monotone, and the group
 // was tested against a far no smaller than the cluster's (the running best
-// only falls).
+// only falls; the any hit's far is fixed).
 //
-// Bound: operations.  A 1024x1024 launch reads 24 bytes and writes 16 a ray;
-// a clustered ray does slab tests of 25 flop and some ten triangle tests of
-// 53, a flat ray P triangle tests.  The records of a 12,032-triangle scene
-// are 578 KB and stay in L2.  The design:
-//   * clustered closest: the group level takes a ray's slab tests from C
-//     (302 on the small scene) to G plus CLUSTER_GROUP for each group
-//     entered; the group table (G x 8 words), the cluster table (C x 8),
-//     and the (8, G) and (8, C) visit tables are staged in shared memory
-//     while they fit in 48 KB (C + G <= 768) and read from global memory
-//     otherwise; threads of a warp with one octant read the same table
-//     entries (a broadcast); records are read as three float4 through the
-//     read-only cache.
-//   * clustered any: all C clusters in the flattened order, the cluster
-//     and visit tables staged the same way (C <= 768).
+// Bound: operations.  A 1024x1024 launch reads 24 bytes and writes 16 a ray
+// (the any hit: 28 and 1); a clustered ray does slab tests of 25 flop and
+// some ten triangle tests of 53, a flat ray P triangle tests.  The records
+// of a 12,032-triangle scene are 578 KB and stay in L2.  The design:
+//   * clustered closest and any: one walk, clustered_kernel<kAny>.  The
+//     group level takes a ray's slab tests from C (302 on the small scene)
+//     to G plus CLUSTER_GROUP for each group entered (the any hit's
+//     primary shadow rays: 298 to about 32); the group table (G x 8
+//     words), the cluster table (C x 8), and the (8, G) and (8, C) visit
+//     tables are staged in shared memory while they fit in 48 KB (C + G <=
+//     768) and read from global memory otherwise; threads of a warp with
+//     one octant read the same table entries (a broadcast); records are
+//     read as three float4 through the read-only cache.
 //   * flat: every thread of a block tests the same record at each step, so a
 //     block stages records through shared memory 256 at a time.
 
@@ -76,8 +75,7 @@ __device__ __forceinline__ int octant_of(const Ray& ray) {
 }
 
 // The tables the clustered kernels read: staged into the block's shared
-// memory when `staged`, else left in global memory.  The any hit reads no
-// group tables (G = 0).
+// memory when `staged`, else left in global memory.
 struct ClusterTables {
     const float4* table;   // (C, 2): (min.xyz, max.x), (max.yz, first, count)
     const int* visit;      // (8, C)
@@ -108,24 +106,30 @@ __device__ __forceinline__ ClusterTables stage_tables(ClusterTables tabs,
     return tabs;
 }
 
+// The clustered walk: the closest hit (kAny false: prim, t, u, v, far = the
+// running best t) or the any hit (kAny true: one occlusion byte, far = the
+// fixed t_max[r], the ray returns at its first hit).
+template <bool kAny>
 __global__ void __launch_bounds__(THREADS)
-closest_hit_clustered_kernel(const float* __restrict__ o,
-                             const float* __restrict__ d,
-                             const float* __restrict__ tmax,   // (R,) or null
-                             const float4* __restrict__ tri,   // (P, 3) float4
-                             ClusterTables tabs,
-                             const int* __restrict__ order,    // (P,)
-                             int C, int G, int staged, float t_min, int R,
-                             int* __restrict__ out_prim,
-                             float* __restrict__ out_t,
-                             float* __restrict__ out_u,
-                             float* __restrict__ out_v) {
+clustered_kernel(const float* __restrict__ o,
+                 const float* __restrict__ d,
+                 const float* __restrict__ tmax,   // (R,); closest: or null
+                 const float4* __restrict__ tri,   // (P, 3) float4
+                 ClusterTables tabs,
+                 const int* __restrict__ order,    // (P,); any: null
+                 int C, int G, int staged, float t_min, int R,
+                 int* __restrict__ out_prim,
+                 float* __restrict__ out_t,
+                 float* __restrict__ out_u,
+                 float* __restrict__ out_v,
+                 unsigned char* __restrict__ out_occ) {  // (R,) bool
     extern __shared__ float4 smem[];
     tabs = stage_tables(tabs, C, G, staged, smem);
     int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
     Ray ray = load_ray(o, d, r);
     float tmax0 = tmax ? tmax[r] : CUDART_INF_F;
+    // best_t is every slab test's far; the any hit never lowers it
     float best_t = tmax0, best_u = 0.0f, best_v = 0.0f;
     int best_s = -1;
     const int q = octant_of(ray);
@@ -153,8 +157,14 @@ closest_hit_clustered_kernel(const float* __restrict__ o,
                 float t, u, v;
                 bool hit = mt_one(tri, slot, ray, t_min, t, u, v)
                     && t < tmax0;
-                // lexicographic (t, slot) minimum
-                if (hit && (t < best_t || (t == best_t && slot < best_s))) {
+                if constexpr (kAny) {
+                    if (hit) {
+                        out_occ[r] = 1;
+                        return;
+                    }
+                } else if (hit && (t < best_t
+                                   || (t == best_t && slot < best_s))) {
+                    // lexicographic (t, slot) minimum
                     best_t = t;
                     best_s = slot;
                     best_u = u;
@@ -163,44 +173,15 @@ closest_hit_clustered_kernel(const float* __restrict__ o,
             }
         }
     }
-    bool miss = best_s < 0;
-    out_prim[r] = miss ? -1 : __ldg(order + best_s);
-    out_t[r] = miss ? CUDART_INF_F : best_t;
-    out_u[r] = miss ? 0.0f : best_u;
-    out_v[r] = miss ? 0.0f : best_v;
-}
-
-__global__ void __launch_bounds__(THREADS)
-any_hit_clustered_kernel(const float* __restrict__ o,
-                         const float* __restrict__ d,
-                         const float* __restrict__ tmax,       // (R,)
-                         const float4* __restrict__ tri,
-                         ClusterTables tabs, int C, int staged,
-                         float t_min, int R,
-                         unsigned char* __restrict__ out_occ) { // (R,) bool
-    extern __shared__ float4 smem[];
-    tabs = stage_tables(tabs, C, 0, staged, smem);
-    int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= R) return;
-    Ray ray = load_ray(o, d, r);
-    float far = tmax[r];
-    const int* row = tabs.visit + octant_of(ray) * C;
-    for (int k = 0; k < C; ++k) {
-        int c = row[k];
-        float4 lo = tabs.table[2 * c], hi = tabs.table[2 * c + 1];
-        if (!slab_box(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, ray, far))
-            continue;
-        int first = __float_as_int(hi.z);
-        int end = first + __float_as_int(hi.w);
-        for (int slot = first; slot < end; ++slot) {
-            float t, u, v;
-            if (mt_one(tri, slot, ray, t_min, t, u, v) && t < far) {
-                out_occ[r] = 1;
-                return;
-            }
-        }
+    if constexpr (kAny) {
+        out_occ[r] = 0;
+    } else {
+        bool miss = best_s < 0;
+        out_prim[r] = miss ? -1 : __ldg(order + best_s);
+        out_t[r] = miss ? CUDART_INF_F : best_t;
+        out_u[r] = miss ? 0.0f : best_u;
+        out_v[r] = miss ? 0.0f : best_v;
     }
-    out_occ[r] = 0;
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -269,28 +250,30 @@ extern "C" int skybox_rt_closest_hit_clustered(
     ClusterTables tabs = {(const float4*)table, (const int*)visit,
                           (const float4*)group_table,
                           (const int*)group_visit};
-    closest_hit_clustered_kernel<<<grid, THREADS, smem,
-                                   (cudaStream_t)stream>>>(
+    clustered_kernel<false><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         (const float*)o, (const float*)d, (const float*)tmax,
         (const float4*)tri, tabs, (const int*)order, C, G, smem > 0, t_min,
-        R, (int*)out_prim, (float*)out_t, (float*)out_u, (float*)out_v);
+        R, (int*)out_prim, (float*)out_t, (float*)out_u, (float*)out_v,
+        nullptr);
     return (int)cudaGetLastError();
 }
 
 extern "C" int skybox_rt_any_hit_clustered(
         const void* o, const void* d, const void* tmax, const void* tri,
-        const void* table, const void* visit, int C, float t_min, int R,
+        const void* table, const void* visit, const void* group_table,
+        const void* group_visit, int C, int G, float t_min, int R,
         void* out_occ, void* stream) {
-    if (C < 0) return cudaErrorInvalidValue;
+    if (C < 0 || G < 0 || (C > 0) != (G > 0)) return cudaErrorInvalidValue;
     if (R == 0) return cudaSuccess;
     int grid = (R + THREADS - 1) / THREADS;
-    size_t smem = staged_bytes(C, 0);
-    ClusterTables tabs = {(const float4*)table, (const int*)visit, nullptr,
-                          nullptr};
-    any_hit_clustered_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+    size_t smem = staged_bytes(C, G);
+    ClusterTables tabs = {(const float4*)table, (const int*)visit,
+                          (const float4*)group_table,
+                          (const int*)group_visit};
+    clustered_kernel<true><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         (const float*)o, (const float*)d, (const float*)tmax,
-        (const float4*)tri, tabs, C, smem > 0, t_min, R,
-        (unsigned char*)out_occ);
+        (const float4*)tri, tabs, nullptr, C, G, smem > 0, t_min, R,
+        nullptr, nullptr, nullptr, nullptr, (unsigned char*)out_occ);
     return (int)cudaGetLastError();
 }
 

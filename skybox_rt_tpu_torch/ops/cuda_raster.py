@@ -14,12 +14,20 @@ bounds it.  :func:`visibility_tiles` keeps the JAX signature and outputs
     phase call it by name; nothing on the main path does when a card is
     present.
 
+The kernel gives a warp a patch of PATCH_W x PATCH_H pixels and skips the
+prims that :func:`patch_culled` proves cover none of them.
+:func:`patch_culled` is that test's plain twin, and :func:`cull_counts`
+counts the kernel's steps with it; the CPU tests and chip_smoke.py call
+them, the main path does not.  :func:`wrapping_case` makes check inputs
+whose edge values wrap.
+
 All words are int32 tensors; ds words are u32 bit patterns (core.fixed).
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..core.fixed import s32
@@ -28,6 +36,17 @@ from ..raster import edge as edge_mod
 from ..raster import interp as interp_mod
 
 TILE_LOGSIZES = (3, 4, 5, 6)
+#: the pixels of one warp of the kernel: a patch PATCH_W wide, PATCH_H tall
+#: (csrc/raster_visibility.cu kPatchW, kPatchH)
+PATCH_W, PATCH_H = 8, 4
+#: warps (patches) of one block (csrc/raster_visibility.cu kWarps); a tile
+#: with fewer patches is one block
+PATCH_WARPS = 4
+#: the frame of :func:`wrapping_case`, and a scissor (left, top, right,
+#: bottom) that leaves the first patch of its tile at (0, 0) outside and
+#: cuts the next, at every tile size
+WRAP_EXTENT = 512
+WRAP_SCISSOR = (13, 6, WRAP_EXTENT - 21, WRAP_EXTENT - 7)
 
 # Kernel launches made by visibility_tiles since the last reset: a run reads
 # it to show that its main path went through the kernel.
@@ -116,6 +135,110 @@ def visibility_tiles_reference(render_state, edges, zattr, tile_pids, tile_xy,
     if fused:
         return dsw, win, dxw, dyw
     return dsw, win
+
+
+def patch_culled(edges, x0, y0):
+    """Whether a prim provably covers no pixel of the kernel's patch
+    [x0, x0 + PATCH_W) x [y0, y0 + PATCH_H): the kernel's cull, exact under
+    its wrapping arithmetic.
+
+    edges (..., 3, 3) int32 [edge][a, b, c]; x0, y0 ints or int tensors
+    broadcastable against edges[..., 0, 0].  A pixel's edge value is
+    a*x + b*y + c wrapped to int32 (raster.edge.eval_edges).  Over the patch
+    the unwrapped int64 value is affine, so its least and largest values lo
+    and hi lie at corners; every int64 of [lo, hi] wraps to a negative int32
+    when lo and hi have one quotient by 2**31 (floor division) and it is
+    odd.  A prim is culled when that holds for one of its edges: that edge
+    is negative on every pixel, so the prim covers none."""
+    e = edges.to(torch.int64)
+    a, b, c = e[..., 0], e[..., 1], e[..., 2]
+    x0 = torch.as_tensor(x0, dtype=torch.int64, device=e.device)[..., None]
+    y0 = torch.as_tensor(y0, dtype=torch.int64, device=e.device)[..., None]
+    x1, y1 = x0 + (PATCH_W - 1), y0 + (PATCH_H - 1)
+    lo = c + torch.where(a >= 0, a * x0, a * x1) \
+        + torch.where(b >= 0, b * y0, b * y1)
+    hi = c + torch.where(a >= 0, a * x1, a * x0) \
+        + torch.where(b >= 0, b * y1, b * y0)
+    q = lo >> 31
+    return ((q == hi >> 31) & ((q & 1) == 1)).any(dim=-1)
+
+
+def patch_origins(tile_xy, tile_logsize):
+    """(T, patches, 2) int64 global pixel (x0, y0) of each kernel patch of
+    each tile, in the kernel's patch order (row-major in the tile)."""
+    ts = 1 << tile_logsize
+    px = torch.arange(0, ts, PATCH_W, device=tile_xy.device)
+    py = torch.arange(0, ts, PATCH_H, device=tile_xy.device)
+    local = torch.stack(torch.broadcast_tensors(px[None, :], py[:, None]),
+                        dim=-1).reshape(-1, 2)
+    return tile_xy.to(torch.int64)[:, None, :] * ts + local[None]
+
+
+def cull_counts(edges, tile_pids, tile_xy, tile_logsize, scissor):
+    """The kernel's work on one draw, by :func:`patch_culled`: returns
+    (steps: pixel-prim steps its warps take, cull_tests: (patch, prim)
+    tests, all_steps: the steps of every pixel over every real prim).  A
+    patch with no pixel inside the scissor takes none of them."""
+    ts = 1 << tile_logsize
+    left, top, right, bottom = (int(v) for v in scissor)
+    org = patch_origins(tile_xy, tile_logsize)              # (T, Q, 2)
+    live = ((org[..., 0] < right) & (org[..., 0] + PATCH_W > left)
+            & (org[..., 1] < bottom) & (org[..., 1] + PATCH_H > top))
+    real = tile_pids >= 0                                   # (T, M)
+    steps = tests = 0
+    for t in range(tile_pids.shape[0]):
+        pids = tile_pids[t][real[t]].to(torch.int64)
+        o = org[t][live[t]]
+        keep = ~patch_culled(edges[pids][:, None], o[None, :, 0],
+                             o[None, :, 1])
+        steps += int(keep.sum()) * PATCH_W * PATCH_H
+        tests += pids.numel() * o.shape[0]
+    return steps, tests, int(real.sum()) * ts * ts
+
+
+def wrapping_case(tile_logsize, seed, device="cpu"):
+    """Check inputs of pass 1 whose edge values wrap: (edges, zattr,
+    tile_pids, tile_xy, fb_ds_tiles) int32 for 6 tiles of up to 40 of 96
+    prims, made with numpy from ``seed``.
+
+    Each edge has coefficients a, b of a random scale from 2**2 to 2**30,
+    and a c that puts its zero, or its wrap at +-2**31 or 2**32, near a
+    random pixel of the WRAP_EXTENT^2 frame, so that edges cross both ways
+    inside patches.  The first tile sits at (0, 0) and the last at the
+    frame's far corner, where :data:`WRAP_SCISSOR` leaves patches outside
+    and cuts others; rows of tile_pids hold ascending pids, -1 padded, one
+    row empty and one full."""
+    rng = np.random.default_rng(seed)
+    tiles, prims, max_prims, extent = 6, 96, 40, WRAP_EXTENT
+    ts = 1 << tile_logsize
+    n = extent // ts
+    cells = rng.choice(n * n - 2, size=tiles - 2, replace=False) + 1
+    cells = np.concatenate([[0], cells, [n * n - 1]])
+    tile_xy = np.stack([cells % n, cells // n], axis=1)
+    scale = 2 ** rng.integers(2, 31, size=(prims, 3, 1))
+    ab = rng.integers(-scale, scale + 1, size=(prims, 3, 2))
+    at = rng.integers(0, extent, size=(prims, 3, 2))
+    target = rng.choice([0, 2**31, -2**31, 2**32], size=(prims, 3))
+    c = (target - ab[..., 0] * at[..., 0] - ab[..., 1] * at[..., 1]
+         + rng.integers(-8, 9, size=(prims, 3)) * scale[..., 0])
+    edges = np.concatenate([ab, c[..., None]], axis=-1)
+    zattr = rng.integers(-2**31, 2**31, size=(prims, 3))
+    tile_pids = np.full((tiles, max_prims), -1)
+    for t in range(tiles):
+        m = (0 if t == tiles // 2 else max_prims if t == 1
+             else int(rng.integers(1, max_prims)))
+        tile_pids[t, :m] = np.sort(rng.choice(prims, size=m, replace=False))
+    words = rng.integers(0, 2**32, size=(tiles, ts, ts), dtype=np.uint64)
+    words = np.where(rng.random((tiles, ts, ts)) < 0.5, words | 0xFFFFFF,
+                     words)
+
+    def i32(a):
+        a = np.asarray(a, np.int64) & 0xFFFFFFFF
+        return torch.from_numpy(
+            np.ascontiguousarray(a.astype(np.uint32).view(np.int32))
+        ).to(device)
+
+    return (i32(edges), i32(zattr), i32(tile_pids), i32(tile_xy), i32(words))
 
 
 def _check(name, t, shape, device):

@@ -49,7 +49,8 @@ octant, and inside an entered group its clusters near to far
 clusters' boxes, so its gate culls no cluster that the cluster's own gate
 would let in.  They test the same triangles against the same running best,
 and agree bit for bit.  The any-hit queries cull against the fixed t_max,
-so their answer does not depend on the order.
+so their answer does not depend on the order; the clustered one walks the
+same two levels.
 
 Records are the port's own layout: ``(rows, 12)`` float32 [v0 e1 e2 | 3 of
 padding], three float4 a row.  BVH blocks hold ``C * tri_block`` rows; rows
@@ -78,7 +79,7 @@ T_MIN = 1e-4
 MAX_LEVELS = 8
 #: most entries a pyramid level may have (csrc/rt_bvh.cu MAX_LEVEL_ENTRIES)
 MAX_LEVEL_ENTRIES = 1 << 24
-#: clusters a group of the clustered closest-hit query holds
+#: clusters a group of the clustered queries holds
 #: (:func:`pack_clusters`).  Swept over 4, 8 and 16 on an H100
 #: (scripts/torch_rt_profile.py --cluster-group, PERF.md): 16 gave the
 #: fastest closest-hit launches, 4 and 8 tie.
@@ -301,7 +302,7 @@ def pack_clusters(tri, aabb, first, count, order, device, group=None):
     return {
         "tri": tri.to(device=device, dtype=torch.float32).contiguous(),
         "table": torch.from_numpy(table).to(device),          # (C, 8)
-        # the two-level order, flattened: what the any-hit query walks
+        # the two-level order, flattened: each group's clusters are a run
         "visit": torch.from_numpy(visit).to(device),          # (8, C)
         "group_table": torch.from_numpy(group_table).to(device),  # (G, 8)
         "group_visit": torch.from_numpy(group_visit).to(device),  # (8, G)
@@ -835,18 +836,34 @@ def closest_hit_clustered_reference(orig, direction, clusters, t_max=None,
 def any_hit_clustered_reference(orig, direction, clusters, t_max=1.0,
                                 t_min: float = T_MIN, stats=None):
     """Plain torch clustered occlusion query, on any device: what
-    :func:`any_hit_clustered` returns, in the kernel's per-ray visit order,
-    the flattened two-level order of the ray's octant (the answer does not
-    depend on it; the counts in ``stats`` do)."""
+    :func:`any_hit_clustered` returns, in the kernel's per-ray order.  The
+    rays of one direction octant meet that octant's groups in its order;
+    the rays without a hit so far take the slab gate of a group against
+    their fixed t_max, and those that enter go through the group's clusters
+    in the octant's order through :func:`_any_over`, leaving at their first
+    hit.
+
+    The answer depends neither on the order nor on the group gate (a
+    group's box contains its clusters' boxes and far is fixed); the counts
+    in ``stats`` do: ``group_slab_tests`` and ``groups_entered`` beside the
+    clusters' ``slab_tests`` / ``slab_pass`` and the ``tri_tests``."""
     R = orig.shape[0]
     o, d, inv = _components(orig, direction)
     tmax = _per_ray_tmax(t_max, R, orig.device)
     occ = torch.zeros((R,), dtype=torch.bool, device=orig.device)
     for rays, groups in _octant_groups(clusters, d):
-        boxes = [b for _, members in groups for b in members]
-        occ[rays] = _any_over(clusters["tri"], boxes, _take(o, rays),
-                              _take(d, rays), _take(inv, rays), tmax[rays],
-                              t_min, stats)
+        alive = rays
+        for gbox, boxes in groups:
+            entered = alive[_slab_pass(gbox, _take(o, alive),
+                                       _take(inv, alive), tmax[alive])]
+            _count(stats, group_slab_tests=alive.numel(),
+                   groups_entered=entered.numel())
+            if entered.numel() == 0:
+                continue
+            occ[entered] = _any_over(
+                clusters["tri"], boxes, _take(o, entered), _take(d, entered),
+                _take(inv, entered), tmax[entered], t_min, stats)
+            alive = alive[~occ[alive]]
     return occ
 
 
@@ -1063,7 +1080,9 @@ def any_hit_clustered(orig, direction, clusters, t_max=1.0,
     _launch("skybox_rt_any_hit_clustered", o.device,
             _ptr(o), _ptr(d), _ptr(tmax), _ptr(clusters["tri"]),
             _ptr(clusters["table"]), _ptr(clusters["visit"]),
-            clusters["num_clusters"], t_min, R, _ptr(occ))
+            _ptr(clusters["group_table"]), _ptr(clusters["group_visit"]),
+            clusters["num_clusters"], clusters["num_groups"], t_min, R,
+            _ptr(occ))
     return occ
 
 

@@ -166,6 +166,17 @@ def test_flat_closest_matches_jax(R, aimed, bounded):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+def _regrouped(clusters, jcl, group):
+    """The carried-over clusters cut into groups of ``group`` (None: as
+    they are)."""
+    if group is None:
+        return clusters
+    return cuda_rt.pack_clusters(
+        clusters["tri"], np.asarray(jcl["aabb"]), np.asarray(jcl["first"]),
+        np.asarray(jcl["count"]), np.asarray(jcl["order"]), "cpu",
+        group=group)
+
+
 @pytest.mark.parametrize("name,q", QUERIES)
 def test_queries_match_jax(name, q):
     """Every query of the check scenes through the clustered and the flat
@@ -190,17 +201,23 @@ def test_queries_match_jax(name, q):
             jo, jd, *jtri, jcl, t_max=jtm, interpret=True))
         want_flat = np.asarray(pallas_rt.any_hit_pallas(
             jo, jd, *jtri, t_max=jtm, interpret=True))
-        got = cuda_rt.any_hit_clustered(_t(oq), _t(dq), clusters,
-                                        t_max=_t(tm))
         got_flat = cuda_rt.any_hit_pallas(_t(oq), _t(dq), flat, t_max=_t(tm))
         oracle = intersect.any_hit_bruteforce(
             _t(oq), _t(dq), *tri,
             t_max=tm if np.ndim(tm) == 0 else _t(tm)[:, None])
-        assert got.dtype == torch.bool and got_flat.dtype == torch.bool
-        np.testing.assert_array_equal(got.numpy(), want)
+        assert got_flat.dtype == torch.bool
         np.testing.assert_array_equal(got_flat.numpy(), want_flat)
-        assert torch.equal(got, oracle) and torch.equal(got_flat, oracle)
-        assert 0 < got.float().mean() < 1
+        assert torch.equal(got_flat, oracle)
+        # the clustered query at every group size (the default one carried
+        # over from JAX): it gates groups, then their clusters
+        for group in (None,) + GROUP_SIZES:
+            got = cuda_rt.any_hit_clustered(
+                _t(oq), _t(dq), _regrouped(clusters, jcl, group),
+                t_max=_t(tm))
+            assert got.dtype == torch.bool
+            np.testing.assert_array_equal(got.numpy(), want)
+            assert torch.equal(got, oracle)
+            assert 0 < got.float().mean() < 1
         return
 
     want = pallas_rt.closest_hit_clustered(jo, jd, *jtri, jcl, t_max=jtm,
@@ -214,12 +231,8 @@ def test_queries_match_jax(name, q):
     # the clustered query at every group size (the default one carried over
     # from JAX): the groups change the order in which clusters are met
     for group in (None,) + GROUP_SIZES:
-        mine = clusters if group is None else cuda_rt.pack_clusters(
-            clusters["tri"], np.asarray(jcl["aabb"]), np.asarray(jcl["first"]),
-            np.asarray(jcl["count"]), np.asarray(jcl["order"]), "cpu",
-            group=group)
-        got = cuda_rt.closest_hit_clustered(_t(oq), _t(dq), mine,
-                                            t_max=_t(tm))
+        got = cuda_rt.closest_hit_clustered(
+            _t(oq), _t(dq), _regrouped(clusters, jcl, group), t_max=_t(tm))
         hits = _check_closest(got, want, min_hits)
         if label == "parked":
             park = np.arange(oq.shape[0]) % 3 == 0
@@ -388,14 +401,62 @@ def test_group_gate_changes_no_result(group):
         assert gated["tri_tests"] == opened["tri_tests"]
 
 
-def test_group_level_cuts_slab_tests_on_small_scene():
+@pytest.mark.parametrize("group", GROUP_SIZES)
+def test_any_group_gate_changes_no_result(group):
+    """The clustered any hit with its group gate, with every group box
+    opened to all of space, and over the flattened row with no group level
+    (the walk before the gate): the same answer, equal to the brute-force
+    oracle; the gate takes cluster slab tests away and no triangle test."""
+    verts, faces, max_tris, queries = scenes.cluster_check_queries(
+        "ico3_c64")
+    tri, clusters, _ = _port_scene(verts, faces, max_tris, group=group)
+    gt = clusters["group_table"].clone()
+    gt[:, 0:3], gt[:, 3:6] = -np.inf, np.inf
+    open_groups = {**clusters, "group_table": gt}
+    # one group of all the clusters, its box all of space: the flattened row
+    one = cuda_rt.pack_clusters(
+        clusters["tri"], clusters["table"].numpy(),
+        *clusters["table"][:, 6:8].contiguous().view(torch.int32).T.numpy(),
+        clusters["order"].numpy(), "cpu", group=clusters["num_clusters"])
+    one["group_table"][:, 0:3], one["group_table"][:, 3:6] = -np.inf, np.inf
+    anys = 0
+    for label, kind, oq, dq, tm in queries:
+        tm = 2.5 if tm is None else tm
+        gated, opened = {}, {}
+        got = cuda_rt.any_hit_clustered_reference(
+            _t(oq), _t(dq), clusters, _t(tm), stats=gated)
+        want = cuda_rt.any_hit_clustered_reference(
+            _t(oq), _t(dq), open_groups, _t(tm), stats=opened)
+        flat = cuda_rt.any_hit_clustered_reference(_t(oq), _t(dq), one,
+                                                   _t(tm))
+        oracle = intersect.any_hit_bruteforce(
+            _t(oq), _t(dq), *tri,
+            t_max=tm if np.ndim(tm) == 0 else _t(tm)[:, None])
+        assert torch.equal(got, want) and torch.equal(got, flat), label
+        assert torch.equal(got, oracle), label
+        assert opened["groups_entered"] == opened["group_slab_tests"]
+        assert gated["groups_entered"] <= gated["group_slab_tests"]
+        assert gated["slab_tests"] <= opened["slab_tests"]
+        assert gated["tri_tests"] == opened["tri_tests"]
+        assert gated["slab_pass"] == opened["slab_pass"]
+        anys += int(got.any())
+    assert anys > 0
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_group_level_cuts_slab_tests_on_small_scene(kind):
     """The 12,032-triangle sphere field of the small-scene frame (302
     clusters of <= 64): on a sample of its 256x256 primary rays the group
     and cluster slab tests a ray fall far under C, and the hits hold to
-    the one-level order's (group 1) with ties only."""
+    the one-level order's (group 1) with ties only.  The any hit, on the
+    shadow rays that the frame's shading makes from those hits (most of
+    them parked): under 40 group and cluster slab tests a ray (the walk
+    without the group level: about 298), and the same answer as at group
+    1."""
     from skybox_rt_tpu_torch.geom import cgltrace
+    from skybox_rt_tpu_torch.rt import tracer
 
-    verts, faces, _ = scenes.sphere_field(copies=9, subdiv=3)
+    verts, faces, colors = scenes.sphere_field(copies=9, subdiv=3)
     tri = intersect.triangle_arrays(
         torch.as_tensor(verts), torch.as_tensor(np.asarray(faces, np.int64)))
     cl = bvh_mod.build_clusters(bvh_mod.build(verts, faces, method="sah"), 64)
@@ -416,9 +477,34 @@ def test_group_level_cuts_slab_tests_on_small_scene():
     assert stats["group_slab_tests"] == clusters["num_groups"] * R
     hits = (got[0] >= 0).numpy()
     assert hits.mean() > 0.3
-    ties = scenes.check_clustered_equals_flat(
-        [x.numpy() for x in got], [x.numpy() for x in one])
-    assert ties <= 0.01 * hits.sum()
+    if kind == "closest":
+        ties = scenes.check_clustered_equals_flat(
+            [x.numpy() for x in got], [x.numpy() for x in one])
+        assert ties <= 0.01 * hits.sum()
+        return
+    scene = tracer.RTScene(verts=verts, faces=faces, colors=colors,
+                           normals=tracer.vertex_normals(verts, faces),
+                           reflectivity=0.35)
+    cfg = tracer.RTConfig(width=256, height=256, bounces=2, shadows=True)
+    shadow = []
+
+    def occluded(so, sd, t_max):
+        shadow.append((so, sd, t_max))
+        return torch.zeros((so.shape[0],), dtype=torch.bool)
+
+    tracer.shade_hits(tracer.scene_shade_arrays(scene, cfg, "cpu"), cfg,
+                      occluded, o, d, *got)
+    so, sd, tm = shadow[0]
+    parked = (so[:, 0] > 1e7).float().mean()
+    assert 0.3 < parked < 0.9
+    stats = {}
+    occ = cuda_rt.any_hit_clustered_reference(so, sd, clusters, tm,
+                                              stats=stats)
+    slabs = (stats["group_slab_tests"] + stats["slab_tests"]) / R
+    assert slabs < 40, stats
+    assert 0 < occ.float().mean() < 0.5
+    assert torch.equal(occ, cuda_rt.any_hit_clustered_reference(
+        so, sd, cuda_rt.prepare_clusters(*tri, cl, group=1), tm))
 
 
 def test_wrappers_reject_bad_inputs():
