@@ -100,8 +100,11 @@ exits non-zero, and only a run where every phase passed prints the final
                card, equal on every pixel: random-triangle scenes (seeds 0 and
                3, depth test on and off), tile_logsize 3..6, a scene with
                coplanar duplicates, one with degenerate triangles (w = 1e-30,
-               w = 0, zero area), and the training icosphere at 512x512 and
-               1024x1024
+               w = 0, zero area), the training icosphere at 512x512 and
+               1024x1024, and the warps' cull's edge cases
+               (diff.cuda_vis.cull_case: infinite and NaN coefficients,
+               zero-area prims, edges exactly 0 at a patch corner) at every
+               tile size
  16. diff_accumulate_vs_plain — the row-accumulation kernel against its
                order-exact plain version, bit for bit, and two launches
                bit-identical: (N, R, C) = (3000, 256, 16) with out-of-range
@@ -130,8 +133,12 @@ exits non-zero, and only a run where every phase passed prints the final
                auto_slots, one step each: finite, max_writes <= slots, image
                equal to the sequential render()'s on the card within rtol
                1e-4, atol 1e-4
- 19. diff_timing — CUDA events, median of 20: the visibility kernel and the
-               plain chunk reduction (of 5) at 1024x1024; the accumulation
+ 19. diff_timing — CUDA events, median of 20: the visibility kernel (around
+               the call and as a CUDA graph's replay) and the plain chunk
+               reduction (of 5) at 1024x1024, beside the pixel steps its
+               warps' cull keeps, the cull tests and the covered steps
+               (diff.cuda_vis.cull_counts), and the bound of every pixel
+               step (the earlier one-block-a-tile design's); the accumulation
                kernel, its plain version (one run, from phase 16) and
                ``zeros(R, C).index_add_`` (the library call; it takes only
                the kept rows) on the texel, record, pos and uv tables and
@@ -187,15 +194,21 @@ exits non-zero, and only a run where every phase passed prints the final
                the flat kernel tie-aware; both engines' 1024x1024 frames: 3 + 3
                launches of their kernel (the closest hit, and the closest hit
                inside the bound as the occlusion query), image equal to the
-               clustered frame's (max |diff| 0)
+               clustered frame's (max |diff| 0).  Beside the tests a ray, the
+               kernels' lane efficiency on each whole launch (``lanes``: their
+               plain versions' counts over warps of 32 consecutive rays,
+               useful triangle tests over the lane-steps run, at the shipped
+               ``lane_switch`` and a ray a lane)
   25. rt_config3_timing — CUDA events, median of 20: every walk of every K-slot
                draw (beside its share of ended rays, its tests a ray and its
                bound) and the closest-hit kernel on the ``winner`` draws,
                each around the call and as a CUDA graph's replay; one scan
                draw, the whole frame at 512x512 and 1024x1024; the streamed and
-               worklist kernels on the small scene's primary launch beside the
-               clustered and the flat one, the worklist's prepass apart from
-               its kernel, the three engines' frames
+               worklist kernels on the small scene's primary launch (around
+               the call and as a CUDA graph's replay) beside the clustered
+               and the flat one, the streamed kernel on each of the frame's
+               six launches, the worklist's prepass apart from its kernel,
+               the three engines' frames
 
   26. apps_sgemm_vs_plain — kernel #12 (csrc/apps_sgemm.cu, one fused
                multiply-add a step) against its plain version (an exact fmaf
@@ -253,8 +266,13 @@ The next-hit-after entry gives walk 1 of the largest K-slot draw (the
 draw, ``frame_ms`` their sum, ``frame_bound_ms`` the sum of their bounds,
 ``walk_graph_ms`` and ``frame_graph_ms`` the same as graph replays,
 ``launches`` the frame's count.  The streamed and
-worklist entries give the small scene's primary launch; the worklist's
-``prepass_ms`` is its plain-torch prepass, which the bound leaves out.
+worklist entries give the small scene's primary launch (``graph_ms`` too),
+the streamed one its frame's six launches (``launch_ms``,
+``launch_graph_ms``, their sums ``frame_ms``, ``frame_graph_ms``), both the
+lane switch and lane efficiency of phase 24; the worklist's ``prepass_ms``
+is its plain-torch prepass, which the bound leaves out.  The visibility
+entry adds ``graph_ms`` and the kept pixel steps and cull tests that its
+operations term counts.
 
 The script imports no JAX: the references it checks against are committed
 files (skybox_rt_tpu_torch/data/).
@@ -1163,6 +1181,9 @@ def small_phases(dev, card) -> list:
 # 3 multiplies + 2 adds and the compare with the best z.
 DIFF_VIS_STEP_OPS = 15
 DIFF_VIS_COVERED_OPS = 15
+# ... and its cull of one prim for one warp's 8x4 patch: per edge two corner
+# selects, 2 multiplies + 2 adds and a compare (7), and the ands of the three
+DIFF_VIS_CULL_OPS = 23
 DIFF_SIZE = 1024        # the full-width training step
 DIFF_STEPS = 10
 ACC_STRESS_ROWS = 4096  # kernel #5's stress cases: the texel table's rows
@@ -1236,6 +1257,22 @@ def diff_phases(dev, card) -> list:
     for size in (512, DIFF_SIZE):
         vis_cases[f"icosphere_{size}"] = compare_vis(
             f"icosphere {size}", *scene(check.train_scene, size))
+    # the cull's edge cases (infinite and NaN coefficients, zero-area prims,
+    # edges exactly 0 at a patch corner) at every tile size
+    for tls in cuda_vis.TILE_LOGSIZES:
+        inputs = cuda_vis.cull_case(tls, tls, dev)
+        for depth_test in (True, False):
+            got = cuda_vis.visibility_hard(*inputs, tls, depth_test)
+            want = cuda_vis.visibility_hard_reference(*inputs, tls,
+                                                      depth_test)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"cull case {tls}: diff_visibility != plain version on "
+                    f"{int((got != want).sum())} of {got.numel()} pixels")
+            vis_cases[f"cull_case_{tls}_{'z' if depth_test else 'noz'}"] = {
+                "tiles": got.shape[0], "M": inputs[2].shape[1],
+                "covered_pixels": int((got >= 0).sum()), "max_abs_err": 0}
     if counts() != (len(vis_cases), 0):
         raise AssertionError(f"phase 15 launched {counts()}")
     vis_err = max(c["max_abs_err"] for c in vis_cases.values())
@@ -1452,31 +1489,33 @@ def diff_phases(dev, card) -> list:
           gradients_bit_identical_twice=True, modes_512=modes)
 
     # 19. timing (printed, not judged)
-    def covered_steps(setup, pids, origins, cfg):
-        """(pixel-steps over real prims, those of them that are covered)."""
-        ts = 1 << cfg.tile_logsize
-        xs, ys = cuda_vis.tile_coords(ts, origins)
-        covered = 0
-        for pc, _ in cuda_vis.padded_chunks(pids, 32):
-            covered += int(cuda_vis.chunk_edges(setup["edges"], pc, xs,
-                                                ys)[3].sum())
-        return int((pids >= 0).sum()) * ts * ts, covered
-
     timing = {}
     params, static, cfg = scene(check.train_scene, DIFF_SIZE)
     setup, pids, origins = vis_inputs(params, static, cfg)
     edges, zs = setup["edges"], setup["z"]
-    vis_ms = median_ms(lambda: cuda_vis.visibility_hard(
-        edges, zs, pids, origins, cfg.tile_logsize, True))
+
+    def vis():
+        return cuda_vis.visibility_hard(edges, zs, pids, origins,
+                                        cfg.tile_logsize, True)
+
+    vis_ms, vis_graph_ms = median_ms(vis), graph_ms(vis)
     vis_plain_ms = median_ms(lambda: cuda_vis.visibility_hard_reference(
         edges, zs, pids, origins, cfg.tile_logsize, True), reps=5, warmup=1)
-    steps, covered = covered_steps(setup, pids, origins, cfg)
-    vis_bound = bound(nbytes(edges, zs, pids, origins) + 4 * T * 1024,
-                      steps * DIFF_VIS_STEP_OPS
-                      + covered * DIFF_VIS_COVERED_OPS)
+    # the warps' work by the plain cull twin: the pixel steps of the prims
+    # each patch keeps, the (patch, prim) cull tests, the covered steps;
+    # beside it, the one-block-a-tile design's every-pixel steps
+    culls = cuda_vis.cull_counts(edges, pids, origins, cfg.tile_logsize)
+    moved = nbytes(edges, zs, pids, origins) + 4 * T * 1024
+    vis_bound = bound(moved, culls["kept_steps"] * DIFF_VIS_STEP_OPS
+                      + culls["covered_steps"] * DIFF_VIS_COVERED_OPS
+                      + culls["cull_tests"] * DIFF_VIS_CULL_OPS)
     timing["visibility_1024"] = {
-        "kernel_ms": vis_ms, "plain_ms": vis_plain_ms, "T": T, "M": M,
-        "pixel_steps": steps, "covered_steps": covered, "bound": vis_bound}
+        "kernel_ms": vis_ms, "graph_ms": vis_graph_ms,
+        "plain_ms": vis_plain_ms, "T": T, "M": M, **culls,
+        "blocks": T * (1 << (2 * cfg.tile_logsize - 7)), "bound": vis_bound,
+        "bound_every_pixel_step": bound(
+            moved, culls["all_steps"] * DIFF_VIS_STEP_OPS
+            + culls["covered_steps"] * DIFF_VIS_COVERED_OPS)}
     acc_timing = {}
     for name in ACC_STEP + ACC_STRESS:
         idx, val, R = acc_inputs[name]
@@ -1538,9 +1577,11 @@ def diff_phases(dev, card) -> list:
         "source": "skybox_rt_tpu_torch/csrc/diff_visibility.cu",
         "replaces": "skybox_rt_tpu/diff/pallas_vis.py:67",
         "launches": sgd_launches[0], "max_abs_err": vis_err, "ms": vis_ms,
-        "plain_ms": vis_plain_ms, **vis_bound,
+        "graph_ms": vis_graph_ms, "plain_ms": vis_plain_ms, **vis_bound,
         "library_ms": None,     # no single PyTorch call computes this
-        "steps": DIFF_STEPS, "tiles": T, "M": M}, {
+        "steps": DIFF_STEPS, "tiles": T, "M": M,
+        "kept_steps": culls["kept_steps"],
+        "cull_tests": culls["cull_tests"]}, {
         "name": "diff_accumulate", "route": "cuda",
         "source": "skybox_rt_tpu_torch/csrc/diff_accumulate.cu",
         "replaces": "skybox_rt_tpu/diff/pallas_texgrad.py:41",
@@ -1960,6 +2001,16 @@ def config3_phases(dev, card) -> list:
                                               tri_block=tri_block),
                 cuda_rt.prepare_clusters(*tri, cl), cuda_rt.pack_records(*tri))
 
+    def lane_figures(stats):
+        """The kernels' lane efficiency from a plain version's counts:
+        useful triangle tests over the lane-steps run, at the shipped
+        switch and a ray a lane (the earlier design)."""
+        useful = stats.get("tri_tests", 0)
+        run, ray = stats.get("lane_steps", 0), stats.get("lane_steps_ray", 0)
+        return {"lane_efficiency": useful / run if run else None,
+                "lane_efficiency_ray_a_lane": useful / ray if ray else None,
+                "warp_visits": stats.get("warp_visits", 0)}
+
     checks = {"cases": 0, "rays_differ": 0, "prims_tied_with_flat": 0}
     for name in sorted(scenes.CLUSTER_CHECK_SCENES):
         verts, faces, _, queries = scenes.cluster_check_queries(name)
@@ -1999,6 +2050,14 @@ def config3_phases(dev, card) -> list:
     stats = {}
     primary = stream_compare(o, d, tm, stream, clusters, flat, stats)
     R = o.shape[0]
+    # the kernels' lanes on each whole launch: a warp is 32 consecutive rays
+    # of its launch, which a strided sample does not keep together
+    lanes = {"primary": {q: lane_figures(stats[q])
+                         for q in ("streamed", "worklist")}}
+    for name, (_, lo, ld, ltm) in zip(LAUNCH_NAMES[1:], launches[1:]):
+        st = {}
+        cuda_rt.closest_hit_streamed_reference(lo, ld, stream, ltm, stats=st)
+        lanes[name] = {"streamed": lane_figures(st)}
     moved = nbytes(o, d, stream["tri"], stream["aabb"], stream["order"]) \
         + 16 * R
     lists = cuda_rt.active_block_lists(o, d, stream, tm)
@@ -2016,7 +2075,9 @@ def config3_phases(dev, card) -> list:
             "library_ms": None,     # no single PyTorch call computes this
             "rays": R, "rays_differ": primary[f"{q}_rays_differ"],
             "slab_tests_per_ray": stats[q]["slab_tests"] / R,
-            "tri_tests_per_ray": stats[q]["tri_tests"] / R})
+            "tri_tests_per_ray": stats[q]["tri_tests"] / R,
+            "lane_switch": cuda_rt.STREAM_LANE_SWITCH,
+            **lane_figures(stats[q])})
     # both engines' full-width frames: 3 + 3 launches of their one kernel
     # (closest, and the closest hit inside the bound as the occlusion
     # query), the image the clustered frame's
@@ -2045,7 +2106,9 @@ def config3_phases(dev, card) -> list:
                           "fn": (fn_e, oe, de)}
     phase("rt_streamed_worklist", checks=checks, triangles=P,
           blocks=stream["num_blocks"], tri_block=stream["tri_block"],
-          ray_tile=cuda_rt.STREAM_RAY_TILE, classes=classes,
+          ray_tile=cuda_rt.STREAM_RAY_TILE,
+          lane_switch=cuda_rt.STREAM_LANE_SWITCH, lanes=lanes,
+          classes=classes,
           primary={k: v for k, v in primary.items()},
           frames={e: {k: v for k, v in f.items() if k != "fn"}
                   for e, f in frames.items()},
@@ -2107,15 +2170,36 @@ def config3_phases(dev, card) -> list:
     t["mpix_per_s_1024"] = N * N * len(metas) / t["frame_1024_ms"] / 1e3
     _, o, d, tm = launches[0]
     s_entry, w_entry = stream_entries
-    s_entry["ms"] = median_ms(
-        lambda: cuda_rt.closest_hit_streamed(o, d, stream))
-    w_entry["ms"] = median_ms(
-        lambda: cuda_rt.closest_hit_worklist(o, d, stream, lists=lists))
+
+    def streamed_launch(launch):
+        _, lo, ld, ltm = launch
+        return lambda: cuda_rt.closest_hit_streamed(lo, ld, stream,
+                                                    t_max=ltm)
+
+    def worklist():
+        return cuda_rt.closest_hit_worklist(o, d, stream, lists=lists)
+
+    # the streamed frame's six launches (the shadow launches as the
+    # closest hit inside their bound, as the engine runs them)
+    s_entry["launch_ms"] = {n: median_ms(streamed_launch(la))
+                            for n, la in zip(LAUNCH_NAMES, launches)}
+    s_entry["launch_graph_ms"] = {n: graph_ms(streamed_launch(la))
+                                  for n, la in zip(LAUNCH_NAMES, launches)}
+    s_entry["ms"] = s_entry["launch_ms"]["primary"]
+    s_entry["graph_ms"] = s_entry["launch_graph_ms"]["primary"]
+    s_entry["frame_ms"] = sum(s_entry["launch_ms"].values())
+    s_entry["frame_graph_ms"] = sum(s_entry["launch_graph_ms"].values())
+    w_entry["ms"], w_entry["graph_ms"] = median_ms(worklist), graph_ms(
+        worklist)
     w_entry["prepass_ms"] = median_ms(
         lambda: cuda_rt.active_block_lists(o, d, stream), reps=5, warmup=1)
     w_entry["with_prepass_ms"] = median_ms(
         lambda: cuda_rt.closest_hit_worklist(o, d, stream), reps=5, warmup=1)
     small = {"streamed_ms": s_entry["ms"], "worklist_ms": w_entry["ms"],
+             "streamed_graph_ms": s_entry["graph_ms"],
+             "worklist_graph_ms": w_entry["graph_ms"],
+             "streamed_launch_ms": s_entry["launch_ms"],
+             "streamed_launch_graph_ms": s_entry["launch_graph_ms"],
              "worklist_prepass_ms": w_entry["prepass_ms"],
              "worklist_with_prepass_ms": w_entry["with_prepass_ms"],
              "clustered_ms": median_ms(

@@ -59,13 +59,13 @@ _SIGNATURES = {
     "skybox_rt_any_hit_clustered": [_P] * 8 + [_I, _I, _F, _I] + [_P] * 2,
     # o d tmax tri, P, t_min, R, prim t u v, the stream
     "skybox_rt_closest_hit_flat": [_P] * 4 + [_I, _F, _I] + [_P] * 5,
-    # o d tmax tri aabb order, NB P tri_block, t_min, R, prim t u v, the
-    # stream
-    "skybox_rt_closest_hit_streamed": [_P] * 6 + [_I, _I, _I, _F, _I]
+    # o d tmax tri aabb order, NB P tri_block, t_min, R, lane_switch,
+    # prim t u v, the stream
+    "skybox_rt_closest_hit_streamed": [_P] * 6 + [_I, _I, _I, _F, _I, _I]
                                       + [_P] * 5,
     # o d tmax tri aabb order lists counts, NB P tri_block, t_min, R,
-    # prim t u v, the stream
-    "skybox_rt_closest_hit_worklist": [_P] * 8 + [_I, _I, _I, _F, _I]
+    # lane_switch, prim t u v, the stream
+    "skybox_rt_closest_hit_worklist": [_P] * 8 + [_I, _I, _I, _F, _I, _I]
                                       + [_P] * 5,
     # edges z tile_pids origins out, T M tile_logsize depth_test, the stream
     "skybox_diff_visibility_hard": [_P] * 5 + [_I] * 4 + [_P],

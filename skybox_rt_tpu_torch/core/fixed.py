@@ -75,6 +75,13 @@ def to_fixed_np(x, frac: int, dtype=np.int32):
     return np.trunc(scaled).astype(np.int64).astype(dtype)
 
 
+def to_fixed(x, frac: int) -> torch.Tensor:
+    """float32 -> fixed data (int32), truncation toward zero: the tensor
+    variant of :func:`to_fixed_np`, for |x| < 2^(31-frac)."""
+    scaled = torch.as_tensor(x, dtype=torch.float32) * float(1 << frac)
+    return torch.trunc(scaled).to(torch.int32)
+
+
 def to_fixed_x86(x: torch.Tensor, frac: int) -> torch.Tensor:
     """float32 -> fixed data with x86 ``cvttss2si`` cast semantics.
 

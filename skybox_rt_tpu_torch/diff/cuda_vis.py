@@ -4,7 +4,10 @@ its plain torch version.
 Counterpart of skybox_rt_tpu.diff.pallas_vis.  The kernel,
 ``csrc/diff_visibility.cu``, replaces the Pallas TPU kernel
 ``pallas_vis._make_kernel`` (launched by ``visibility_hard``); its source
-says how it is laid out and what bounds it.  :func:`visibility_hard` keeps
+says how it is laid out and what bounds it.  A warp of it culls prims for a
+pixel patch: :func:`patch_culled` is that cull's plain twin and
+:func:`cull_counts` the kernel's work; the tests and chip_smoke.py call
+them, the training path does not.  :func:`visibility_hard` keeps
 the JAX signature (minus ``interpret``):
 
   * a CUDA tensor launches the kernel on the current stream, or raises;
@@ -29,9 +32,13 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 TILE_LOGSIZES = (3, 4, 5, 6)
+#: the pixels of one warp of the kernel: a patch PATCH_W wide, PATCH_H tall
+#: (csrc/diff_visibility.cu kPatchW, kPatchH)
+PATCH_W, PATCH_H = 8, 4
 
 #: Steps advanced per pass of the plain chunk reduction.  Larger means fewer
 #: passes and bigger (tiles, VIS_CHUNK, ts, ts) temporaries.
@@ -157,6 +164,104 @@ def _hard_group(edges, z, tile_pids, origins, ts, depth_test):
     if depth_test:
         best_s = torch.where(best_s == _BIG, -1, best_s)
     return best_s
+
+
+def patch_culled(edges, x0, y0):
+    """Whether a prim provably covers no pixel of the kernel's patch
+    [x0, x0 + PATCH_W) x [y0, y0 + PATCH_H): the kernel's cull, exact under
+    float32 rounding.
+
+    edges (..., 3, 3) float32 [edge][a, b, c]; x0, y0 int tensors
+    broadcastable against edges[..., 0, 0].  A pixel's edge value is the
+    rounded (a*x + b*y) + c of :func:`chunk_edges`.  Each rounded operation
+    is monotone in each input, so that expression at the corner x = x1 if
+    a >= 0 else x0 (y likewise) bounds every pixel's value from above,
+    unless a NaN (inf * 0, inf - inf) arises, which reaches the end of its
+    chain.  A prim is culled when the corner value of one of its edges is
+    < 0 (a NaN corner never culls): each pixel's value is then NaN or
+    negative, and fails ``>= 0``."""
+    a, b, c = edges[..., 0], edges[..., 1], edges[..., 2]
+
+    def corner(v0, extent, coef):
+        v0 = torch.as_tensor(v0, device=edges.device)[..., None]
+        return torch.where(coef >= 0, v0 + (extent - 1), v0).to(torch.float32)
+
+    xc, yc = corner(x0, PATCH_W, a), corner(y0, PATCH_H, b)
+    return (a * xc + b * yc + c < 0).any(dim=-1)
+
+
+def patch_origins(origins, tile_logsize):
+    """(T, patches, 2) int64 pixel (x0, y0) of each kernel patch of each
+    tile, in the kernel's patch order (row-major in the tile)."""
+    ts = 1 << tile_logsize
+    px = torch.arange(0, ts, PATCH_W, device=origins.device)
+    py = torch.arange(0, ts, PATCH_H, device=origins.device)
+    local = torch.stack(torch.broadcast_tensors(px[None, :], py[:, None]),
+                        dim=-1).reshape(-1, 2)
+    return origins.to(torch.int64)[:, None, :] + local[None]
+
+
+def cull_counts(edges, tile_pids, origins, tile_logsize):
+    """The kernel's work, by :func:`patch_culled`: a dict of
+    ``kept_steps`` (pixel steps its warps run), ``cull_tests`` ((patch,
+    prim) tests), ``covered_steps`` (pixel steps whose three edge values
+    pass) and ``all_steps`` (every pixel of a tile over each real prim: the
+    earlier one-block-a-tile design's steps)."""
+    ts = 1 << tile_logsize
+    real = tile_pids >= 0                                   # (T, M)
+    org = patch_origins(origins, tile_logsize)              # (T, Q, 2)
+    e = edges[tile_pids.clamp(min=0).long()]                # (T, M, 3, 3)
+    culled = patch_culled(e[:, :, None], org[:, None, :, 0],
+                          org[:, None, :, 1])               # (T, M, Q)
+    kept = int((~culled & real[:, :, None]).sum())
+    xs, ys = tile_coords(ts, origins)
+    covered = 0
+    for pc, _ in padded_chunks(tile_pids, 16):
+        covered += int(chunk_edges(edges, pc, xs, ys)[3].sum())
+    n = int(real.sum())
+    return {"kept_steps": kept * PATCH_W * PATCH_H,
+            "cull_tests": n * org.shape[1], "covered_steps": covered,
+            "all_steps": n * ts * ts}
+
+
+def cull_case(tile_logsize, seed, device="cpu"):
+    """Hard-visibility inputs (edges (P, 3, 3), z (P, 3), tile_pids (T, M),
+    origins (T, 2)) for the cull's edge cases, made with numpy from
+    ``seed``: 6 tiles of up to 40 of 64 prims (one row empty, one full),
+    edges of random scale through random pixels, 12 edges made exactly 0 at
+    a patch corner (small integer a, b), 8 prims with an infinite or NaN
+    coefficient, 4 zero-area prims (two opposite edges and a zero one, or
+    all three zero) and depths with infinities and NaN."""
+    rng = np.random.default_rng(seed)
+    P, T, Mx, ts = 64, 6, 40, 1 << tile_logsize
+    origins = rng.choice(8, (T, 2)) * ts
+    ab = rng.uniform(-1, 1, (P, 3, 2)) * 2.0 ** rng.integers(-6, 9, (P, 3, 1))
+    at = rng.uniform(0, 8 * ts, (P, 3, 2))
+    edges = np.concatenate([ab, -(ab * at).sum(-1, keepdims=True)], -1)
+    pick = rng.choice(P * 3, 12, replace=False)
+    a, b = rng.integers(-4, 5, (2, 12))
+    x = rng.choice(8 * ts // PATCH_W, 12) * PATCH_W \
+        + rng.choice([0, PATCH_W - 1], 12)
+    y = rng.choice(8 * ts // PATCH_H, 12) * PATCH_H \
+        + rng.choice([0, PATCH_H - 1], 12)
+    edges.reshape(-1, 3)[pick] = np.stack([a, b, -(a * x + b * y)], 1)
+    bad = rng.choice(P, 8, replace=False)
+    edges[bad, rng.integers(0, 3, 8), rng.integers(0, 3, 8)] = rng.choice(
+        [np.inf, -np.inf, np.nan], 8)
+    flat = rng.choice(np.setdiff1d(np.arange(P), bad), 4, replace=False)
+    edges[flat[:2], 1] = -edges[flat[:2], 0]
+    edges[flat[:2], 2] = 0.0
+    edges[flat[2:]] = 0.0
+    z = rng.uniform(-1, 1, (P, 3))
+    z[rng.choice(P, 6, replace=False), rng.integers(0, 3, 6)] = rng.choice(
+        [np.inf, -np.inf, np.nan], 6)
+    pids = np.full((T, Mx), -1)
+    for t in range(T):
+        m = 0 if t == 2 else Mx if t == 1 else int(rng.integers(1, Mx))
+        pids[t, :m] = np.sort(rng.choice(P, m, replace=False))
+    return tuple(torch.as_tensor(v, device=device) for v in (
+        edges.astype(np.float32), z.astype(np.float32),
+        pids.astype(np.int32), origins.astype(np.int32)))
 
 
 def _check(name, t, dtype, shape, device):

@@ -147,17 +147,23 @@ def rt_scene_from_reference(obj) -> tracer.RTScene:
         bvh_method=str(obj.bvh_method))
 
 
-def bvh_blocks_from_reference(blocks, device) -> dict:
+def bvh_blocks_from_reference(blocks, device, leaves=None) -> dict:
     """The dict of the JAX package's ``pallas_rt.prepare_bvh_blocks`` ->
     the port's ``ops.cuda_rt.prepare_bvh_blocks`` dict on ``device``: the
     nine record floats without the 128-lane padding and the AABB embedded
-    in row 0, the block counts, the slot -> prim map and the AABB pyramid."""
+    in row 0, the block counts, the slot -> prim map and the AABB pyramid.
+
+    The JAX blocks carry no leaf cut.  ``leaves``: the port's
+    rt.bvh.build_block_leaves of the same BVH and block set (a BVH carried
+    over with :func:`bvh_from_reference`); None makes every block one leaf
+    with its own box, the JAX kernels' whole-block gate."""
     return cuda_rt.pack_blocks(
         np.asarray(blocks["tri"])[:, :9].astype(np.float32),
         np.array(blocks["bcnt"], np.int32),
         np.array(blocks["s2p"], np.int32),
         [np.array(a, np.float32) for a in blocks["levels"]],
-        int(blocks["tri_block"]), int(blocks["num_prims"]), device)
+        int(blocks["tri_block"]), int(blocks["num_prims"]), device,
+        leaves=leaves)
 
 
 def clusters_from_reference(clusters, v0, e1, e2, device) -> dict:

@@ -57,10 +57,11 @@ padding], three float4 a row.  BVH blocks hold ``C * tri_block`` rows; rows
 past a block's ``bcnt[b]`` triangles are zero and never read.  All three
 queries over them test a block's triangles leaf by leaf
 (rt.bvh.build_block_leaves: ascending slot ranges with their own boxes, the
-blocks dict's ``leaf_range`` / ``leaf_table``), and refuse blocks without
-that table.  Clusters hold the P triangles in treelet order, the flat query
-in prim order, the streamed and worklist queries in the caller's ``order``,
-cut into blocks of ``tri_block`` rows with the last one shorter.
+blocks dict's ``leaf_range`` / ``leaf_table``; without a leaf cut a block is
+one leaf with its own box).  Clusters hold the P triangles in treelet
+order, the flat query in prim order, the streamed and worklist queries in
+the caller's ``order``, cut into blocks of ``tri_block`` rows with the last
+one shorter.
 """
 from __future__ import annotations
 
@@ -92,6 +93,12 @@ STREAM_RAY_TILE = 128
 #: together; at most csrc/rt_streamed.cu MAX_TRI_BLOCK
 STREAM_TRI_BLOCK = 64
 STREAM_MAX_TRI_BLOCK = 256
+#: the streamed and worklist kernels' switch: a warp tests a block's
+#: triangles across its lanes, one entering ray at a time, when fewer than
+#: this many of its rays enter the block, else a ray a lane
+#: (csrc/rt_streamed.cu); read at every launch, and by the plain versions'
+#: lane counts
+STREAM_LANE_SWITCH = 16
 #: most (ray, block) pairs one chunk of the worklist's prepass may hold
 PREPASS_PAIRS = 1 << 24
 
@@ -112,7 +119,8 @@ def pack_blocks(rows9, bcnt, s2p, levels, tri_block, num_prims, device,
     """The dict the queries take, from numpy arrays: rows9 (C*TB, 9)
     records in slot order, bcnt (C,), s2p (C*TB,), levels [(C_l, 6)], and
     leaves, rt.bvh.build_block_leaves of the same blocks.  Without leaves
-    the queries refuse the dict (it still describes the blocks)."""
+    every block is one leaf with the block's own box
+    (``_whole_block_leaves``)."""
     device = torch.device(device)
     num_blocks = int(bcnt.shape[0])
     if len(levels) > MAX_LEVELS:
@@ -134,10 +142,9 @@ def pack_blocks(rows9, bcnt, s2p, levels, tri_block, num_prims, device,
     counts = [int(a.shape[0]) for a in lv]
     offsets = [sum(counts[:l]) for l in range(len(counts))]
     aabb = torch.cat(lv).contiguous().to(device)
-    leaf_range = leaf_table = None
-    if leaves is not None:
-        leaf_range, leaf_table = _leaf_rows(leaves, bcnt, tri_block)
-        leaf_range, leaf_table = leaf_range.to(device), leaf_table.to(device)
+    if leaves is None:
+        leaves = _whole_block_leaves(bcnt, levels[0], tri_block)
+    leaf_range, leaf_table = _leaf_rows(leaves, bcnt, tri_block)
     return {
         "tri": tri.to(device),                            # (C*TB, 12)
         "bcnt": torch.as_tensor(bcnt, dtype=torch.int32).to(device),
@@ -146,12 +153,25 @@ def pack_blocks(rows9, bcnt, s2p, levels, tri_block, num_prims, device,
         "levels": [aabb[o:o + c] for o, c in zip(offsets, counts)],
         "level_offsets": tuple(offsets),
         "level_counts": tuple(counts),
-        "leaf_range": leaf_range,                         # (C + 1,) or None
-        "leaf_table": leaf_table,                         # (L, 8) or None
+        "leaf_range": leaf_range.to(device),              # (C + 1,)
+        "leaf_table": leaf_table.to(device),              # (L, 8)
         "tri_block": int(tri_block),
         "num_blocks": num_blocks,
         "num_prims": int(num_prims),
     }
+
+
+def _whole_block_leaves(bcnt, level0, tri_block):
+    """The leaves of blocks cut no finer: one leaf a block that holds
+    triangles, its slots [0, bcnt) with the block's box from ``level0``
+    (C, 6), in rt.bvh.build_block_leaves' layout.  Each leaf box is its
+    block's, so the leaf gate passes what the block gate passes: the walk
+    tests whole blocks, as the JAX package's kernels do."""
+    bcnt = np.asarray(bcnt, np.int64)
+    full = np.nonzero(bcnt > 0)[0]
+    return {"range": np.concatenate([[0], np.cumsum(bcnt > 0)]),
+            "aabb": np.asarray(level0, np.float32).reshape(-1, 6)[full],
+            "first": full * int(tri_block), "count": bcnt[full]}
 
 
 def _leaf_rows(leaves, bcnt, tri_block):
@@ -193,13 +213,15 @@ def _leaf_rows(leaves, bcnt, tri_block):
             torch.from_numpy(table))
 
 
-def prepare_bvh_blocks(v0, e1, e2, block_set, leaves, device=None):
+def prepare_bvh_blocks(v0, e1, e2, block_set, leaves=None, device=None):
     """Pack triangle records into the block-slot layout (once per scene).
 
     v0, e1, e2: (P, 3) float32 tensors (rt.intersect.triangle_arrays);
     block_set: rt.bvh.build_block_set output; leaves: rt.bvh.
-    build_block_leaves of the same BVH and block_set.  The blocks land on
-    ``device`` (default: where v0 lies)."""
+    build_block_leaves of the same BVH and block_set, or None (the JAX
+    entry's call): a block is then one leaf with its own box
+    (``_whole_block_leaves``), the same answers from more triangle
+    tests.  The blocks land on ``device`` (default: where v0 lies)."""
     device = v0.device if device is None else torch.device(device)
     s2p = torch.as_tensor(block_set["slot_to_prim"]).long()
     tri9 = torch.cat([v0, e1, e2], dim=1).cpu()             # (P, 9)
@@ -437,7 +459,7 @@ def _closest_box(best, tri, box, first, n, rays, o, d, inv, tmax0, t_min,
     _count(stats, slab_tests=tested, slab_pass=idx_all.numel(),
            tri_tests=idx_all.numel() * n)
     if n == 0:
-        return
+        return idx_all
     slots = first + torch.arange(n, device=tmax0.device)[None, :]
     for idx in _idx_chunks(idx_all, n):
         ok, t, u, v = _range_tests(tri, first, n, o, d, idx, t_min)
@@ -447,18 +469,45 @@ def _closest_box(best, tri, box, first, n, rays, o, d, inv, tmax0, t_min,
             hit = hit & ((t > t_lo) | ((t == t_lo)
                                        & (slots > after[1][idx][:, None])))
         _merge_best(best, idx, hit, t, u, v, slots)
+    return idx_all
 
 
 def _closest_over(tri, boxes, o, d, inv, tmax0, t_min, stats):
     """The running lexicographic (t, slot) minimum of rays (o, d, inv:
     component tuples; tmax0 (r,)) over ``boxes``, an iterable of (AABB row,
     first record row, n) met in that order, each through
-    :func:`_closest_box`.  Returns (best_t, best_slot [-1 = none], u, v)."""
+    :func:`_closest_box`, with the lane counts of :func:`_count_lanes`.
+    Returns (best_t, best_slot [-1 = none], u, v)."""
     best = _new_best(tmax0)
     for box, first, n in boxes:
-        _closest_box(best, tri, box, first, n, None, o, d, inv, tmax0, t_min,
-                     stats, None)
+        _count_lanes(stats, _closest_box(best, tri, box, first, n, None, o,
+                                         d, inv, tmax0, t_min, stats, None),
+                     n)
     return best
+
+
+def _count_lanes(stats, rays, n):
+    """The streamed and worklist kernels' lanes on one step of their walk:
+    ``rays`` (r,) entered a block of ``n`` triangles (an int, or (r,): a
+    warp's rays share their block).  A warp is 32 consecutive rays; where k
+    of them enter, the kernel runs 32 lanes over the n triangles when k >=
+    STREAM_LANE_SWITCH, else k passes of ceil(n / 32) steps of 32 lanes.
+    ``stats`` gains ``warp_visits`` (warps with k >= 1), ``warp_tri_tests``
+    (the useful lane-steps, k * n a visit: ``tri_tests`` counted by warps),
+    ``lane_steps`` (lane-steps run) and ``lane_steps_ray`` (those of a ray a
+    lane on every visit: the earlier design)."""
+    if stats is None or rays.numel() == 0:
+        return
+    warp, inv, k = torch.unique(rays // 32, return_inverse=True,
+                                return_counts=True)
+    n = torch.as_tensor(n, device=rays.device).expand(rays.shape)
+    nw = torch.zeros_like(warp).scatter_(0, inv, n.to(warp.dtype))
+    ray_lane = 32 * nw
+    across = 32 * k * ((nw + 31) // 32)
+    _count(stats, warp_visits=warp.numel(), warp_tri_tests=(k * nw).sum(),
+           lane_steps_ray=ray_lane.sum(),
+           lane_steps=torch.where(k >= STREAM_LANE_SWITCH, ray_lane,
+                                  across).sum())
 
 
 def _any_over(tri, boxes, o, d, inv, tmax, t_min, stats):
@@ -493,13 +542,6 @@ def _closest_result(best_t, best_s, best_u, best_v, slot_to_prim):
             torch.where(miss, zero, best_v))
 
 
-def _leaf_table(blocks):
-    if blocks.get("leaf_table") is None:
-        raise ValueError("the blocks have no leaf table: pass "
-                         "rt.bvh.build_block_leaves to prepare_bvh_blocks")
-    return blocks["leaf_range"], blocks["leaf_table"]
-
-
 def _closest_over_blocks(blocks, block_order, o, d, inv, tmax0, t_min, stats,
                          after=None):
     """:func:`_closest_over` over the blocks' leaves: the blocks in
@@ -514,7 +556,7 @@ def _closest_over_blocks(blocks, block_order, o, d, inv, tmax0, t_min, stats,
     ``block_tri_tests`` (the triangle tests had every entered block been
     tested whole) beside the leaves' ``slab_tests``, ``slab_pass`` and
     ``tri_tests``."""
-    rng, table = _leaf_table(blocks)
+    rng, table = blocks["leaf_range"], blocks["leaf_table"]
     rng = rng.tolist()
     ranges = table[:, 6:8].contiguous().view(torch.int32).tolist()
     counts = blocks["bcnt"].tolist()
@@ -608,7 +650,7 @@ def any_hit_bvh_reference(orig, direction, blocks, t_max=1.0,
     leaf's box lies inside its block's); the order decides only where a ray
     stops, and so the counts.  ``stats``, a dict, gains ``blocks_entered``
     and the counts named there."""
-    rng, table = _leaf_table(blocks)
+    rng, table = blocks["leaf_range"], blocks["leaf_table"]
     o, d, inv = _components(orig, direction)
     R, dev = orig.shape[0], orig.device
     tmax = _per_ray_tmax(t_max, R, dev)
@@ -687,7 +729,9 @@ def closest_hit_streamed_reference(orig, direction, stream, t_max=None,
     """Plain torch streamed closest hit, on any device: what
     :func:`closest_hit_streamed` returns.  Every block in ascending id
     (:func:`_closest_over`): the slab gate of each ray against its running
-    best t, then the block's triangles for the rays that pass."""
+    best t, then the block's triangles for the rays that pass.  ``stats``,
+    a dict, gains the per-ray ``slab_tests``, ``slab_pass`` and
+    ``tri_tests`` and the kernel's lanes (:func:`_count_lanes`)."""
     o, d, inv = _components(orig, direction)
     tmax0 = _per_ray_tmax(math.inf if t_max is None else t_max,
                           orig.shape[0], orig.device)
@@ -742,7 +786,8 @@ def closest_hit_worklist_reference(orig, direction, stream, lists, counts,
     :func:`closest_hit_worklist` returns for the same lists.  Step k takes
     every ray whose tile's list has more than k entries to block
     ``lists[tile, k]``: the slab gate against the ray's running best t, then
-    that block's triangles: the kernel's per-ray order."""
+    that block's triangles: the kernel's per-ray order.  ``stats`` as for
+    :func:`closest_hit_streamed_reference`."""
     R, dev = orig.shape[0], orig.device
     T, TB, P = STREAM_RAY_TILE, stream["tri_block"], stream["num_prims"]
     tri, aabb = stream["tri"], stream["aabb"]
@@ -758,8 +803,10 @@ def closest_hit_worklist_reference(orig, direction, stream, lists, counts,
         enter = _slab_pass(aabb[blk].unbind(dim=1), _take(o, rays),
                            _take(inv, rays), best[0][rays])
         rays, blk = rays[enter], blk[enter]
+        n = (P - blk * TB).clamp(max=TB)
         _count(stats, slab_tests=enter.numel(), slab_pass=rays.numel(),
-               tri_tests=(P - blk * TB).clamp(max=TB).sum())
+               tri_tests=n.sum())
+        _count_lanes(stats, rays, n)
         for sel in _idx_chunks(torch.arange(rays.numel(), device=dev), TB):
             idx = rays[sel]
             slots = blk[sel][:, None] * TB + cols           # (r, TB)
@@ -929,23 +976,20 @@ def _check_on_card(dev, what, tensors):
             raise ValueError(f"{what}[{name!r}] must be contiguous")
 
 
-def _kernel_args(orig, direction, blocks, leaves=False):
+def _kernel_args(orig, direction, blocks):
     """(o, d, level offsets, level counts, levels) for a BVH-block launch,
-    after checking the blocks (and with ``leaves`` their leaf table) on the
-    rays' card."""
+    after checking the blocks and their leaf table on the rays' card."""
     slots = blocks["num_blocks"] * blocks["tri_block"]
-    tensors = [
+    table = blocks["leaf_table"]
+    _check_on_card(orig.device, "blocks", [
         ("tri", blocks["tri"], (slots, RECORD_WIDTH), torch.float32),
         ("bcnt", blocks["bcnt"], (blocks["num_blocks"],), torch.int32),
         ("s2p", blocks["s2p"], (slots,), torch.int32),
         ("aabb", blocks["aabb"], (sum(blocks["level_counts"]), 6),
-         torch.float32)]
-    if leaves:
-        rng, table = _leaf_table(blocks)
-        tensors += [
-            ("leaf_range", rng, (blocks["num_blocks"] + 1,), torch.int32),
-            ("leaf_table", table, (table.shape[0], 8), torch.float32)]
-    _check_on_card(orig.device, "blocks", tensors)
+         torch.float32),
+        ("leaf_range", blocks["leaf_range"], (blocks["num_blocks"] + 1,),
+         torch.int32),
+        ("leaf_table", table, (table.shape[0], 8), torch.float32)])
     n = len(blocks["level_offsets"])
     if not 1 <= n <= MAX_LEVELS:
         raise ValueError(f"AABB pyramid has {n} levels, the kernels take "
@@ -1004,7 +1048,7 @@ def closest_hit_bvh(orig, direction, blocks, t_max=None,
     if orig.device.type == "cpu":
         return closest_hit_bvh_reference(orig, direction, blocks, t_max,
                                          t_min)
-    o, d, off, cnt, n = _kernel_args(orig, direction, blocks, leaves=True)
+    o, d, off, cnt, n = _kernel_args(orig, direction, blocks)
     R = o.shape[0]
     prim, t, u, v = _closest_outputs(R, o.device)
     _launch("skybox_rt_closest_hit_bvh", o.device,
@@ -1026,7 +1070,7 @@ def any_hit_bvh(orig, direction, blocks, t_max=1.0, t_min: float = T_MIN):
     tmax = _per_ray_tmax(t_max, orig.shape[0], orig.device)
     if orig.device.type == "cpu":
         return any_hit_bvh_reference(orig, direction, blocks, tmax, t_min)
-    o, d, off, cnt, n = _kernel_args(orig, direction, blocks, leaves=True)
+    o, d, off, cnt, n = _kernel_args(orig, direction, blocks)
     R = o.shape[0]
     occ = torch.empty((R,), dtype=torch.bool, device=o.device)
     _launch("skybox_rt_any_hit_bvh", o.device,
@@ -1150,7 +1194,7 @@ def closest_hit_bvh_after(orig, direction, blocks, t_lo, slot_lo, t_max=None,
                                                slot_lo, t_max, t_min)
     _check_on_card(dev, "carry", (("t_lo", t_lo, (R,), torch.float32),
                                   ("slot_lo", slot_lo, (R,), torch.int32)))
-    o, d, off, cnt, n = _kernel_args(orig, direction, blocks, leaves=True)
+    o, d, off, cnt, n = _kernel_args(orig, direction, blocks)
     slot = torch.empty((R,), dtype=torch.int32, device=dev)
     prim, t, u, v = _closest_outputs(R, dev)
     _launch("skybox_rt_closest_hit_bvh_after", dev,
@@ -1235,7 +1279,8 @@ def closest_hit_streamed(orig, direction, stream, t_max=None,
             _ptr(o), _ptr(d), _ptr(t_max), _ptr(stream["tri"]),
             _ptr(stream["aabb"]), _ptr(stream["order"]),
             stream["num_blocks"], stream["num_prims"], stream["tri_block"],
-            t_min, R, _ptr(prim), _ptr(t), _ptr(u), _ptr(v))
+            t_min, R, STREAM_LANE_SWITCH, _ptr(prim), _ptr(t), _ptr(u),
+            _ptr(v))
     return prim, t, u, v
 
 
@@ -1273,5 +1318,5 @@ def closest_hit_worklist(orig, direction, stream, t_max=None,
             _ptr(o), _ptr(d), _ptr(t_max), _ptr(stream["tri"]),
             _ptr(stream["aabb"]), _ptr(stream["order"]), _ptr(blk), _ptr(cnt),
             NB, stream["num_prims"], stream["tri_block"], t_min, R,
-            _ptr(prim), _ptr(t), _ptr(u), _ptr(v))
+            STREAM_LANE_SWITCH, _ptr(prim), _ptr(t), _ptr(u), _ptr(v))
     return prim, t, u, v

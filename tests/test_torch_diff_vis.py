@@ -13,6 +13,13 @@ degenerate triangles every pixel is equal.
 
 K-slot modes: slot steps and max_writes equal to JAX's.
 
+The kernel's cull (a warp drops a prim for its 8x4 pixel patch when the
+rounded edge value at the patch's maximising corner is negative): its plain
+twin ``cuda_vis.patch_culled`` is held to every pixel of every patch, on
+``CASES`` and on ``cuda_vis.cull_case`` inputs with infinite and NaN
+coefficients, zero-area prims and edges that are exactly 0 at a patch
+corner.  A culled prim covers no pixel of its patch.
+
 The CUDA kernel against the plain version runs only on a card (marker
 ``cuda``):  python -m pytest --noconftest -m cuda tests/test_torch_diff_vis.py
 """
@@ -57,6 +64,65 @@ def _port_inputs(params, static, cfg, device="cpu"):
     setup = pipeline.prim_setup(params, static["indices"], cfg)
     return setup, static["tile_pids"], static["tile_xy"] * (
         1 << cfg.tile_logsize)
+
+
+def _assert_cull_exact(edges, pids, origins, tile_logsize):
+    """patch_culled on every (tile, step, patch) against the pixels' own
+    coverage: a culled prim covers none of its patch's pixels.  Returns
+    (culled, covered) (patch, step) counts over real prims."""
+    ts = 1 << tile_logsize
+    T, M = pids.shape
+    xs, ys = cuda_vis.tile_coords(ts, origins)
+    inside = cuda_vis.chunk_edges(edges, pids, xs, ys)[3]   # (T, M, ts, ts)
+    pw, ph = cuda_vis.PATCH_W, cuda_vis.PATCH_H
+    covers = inside.reshape(T, M, ts // ph, ph, ts // pw, pw).any(
+        dim=(3, 5)).reshape(T, M, -1)
+    org = cuda_vis.patch_origins(origins, tile_logsize)
+    culled = cuda_vis.patch_culled(edges[pids.clamp(min=0).long()][:, :, None],
+                                   org[:, None, :, 0], org[:, None, :, 1])
+    culled &= (pids >= 0)[:, :, None]
+    assert culled.shape == covers.shape
+    assert not bool((culled & covers).any())
+    return int(culled.sum()), int(covers.sum())
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_patch_cull_is_exact(name):
+    params, static, cfg = check.random_triangles(**CASES[name])
+    setup, pids, origins = _port_inputs(params, static, cfg)
+    culled, covers = _assert_cull_exact(setup["edges"], pids, origins,
+                                        cfg.tile_logsize)
+    assert culled > 0 and covers > 0
+    counts = cuda_vis.cull_counts(setup["edges"], pids, origins,
+                                  cfg.tile_logsize)
+    real = int((pids >= 0).sum())
+    assert counts["all_steps"] == real * (1 << (2 * cfg.tile_logsize))
+    assert counts["covered_steps"] <= counts["kept_steps"] \
+        < counts["all_steps"]
+    assert counts["kept_steps"] == (counts["cull_tests"] - culled) * 32
+
+
+@pytest.mark.parametrize("tile_logsize", cuda_vis.TILE_LOGSIZES)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_patch_cull_is_exact_on_edge_cases(tile_logsize, seed):
+    edges, z, pids, origins = cuda_vis.cull_case(tile_logsize, seed)
+    assert not bool(torch.isfinite(edges).all())
+    culled, covers = _assert_cull_exact(edges, pids, origins, tile_logsize)
+    assert culled > 0 and covers > 0
+    # an edge that is 0 at a patch corner leaves its prim in: the corner
+    # value is 0, not < 0
+    zero_corner = cuda_vis.patch_culled(
+        torch.tensor([[[1.0, 2.0, -(1.0 * 7 + 2.0 * 3)]] * 3]),
+        torch.tensor([0]), torch.tensor([0]))
+    assert zero_corner.tolist() == [False]
+    # the plain version runs over them: NaN and +inf depths never win
+    steps = cuda_vis.visibility_hard_reference(edges, z, pids, origins,
+                                               tile_logsize, True)
+    won = torch.gather(pids.long(), 1, steps.clamp(min=0).long().reshape(
+        pids.shape[0], -1)).reshape(steps.shape)[steps >= 0]
+    assert won.numel() > 0
+    zw = z[won]
+    assert not bool(torch.isnan(zw).any() | (zw == float("inf")).any())
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -206,3 +272,13 @@ def test_kernel_matches_plain_on_card():
         assert cuda_vis.launch_count == 1
         torch.cuda.synchronize()
         assert torch.equal(got, want), name
+    # the cull's edge cases at every tile size, with and without depth test
+    for tls in cuda_vis.TILE_LOGSIZES:
+        for seed in (0, 1):
+            inputs = cuda_vis.cull_case(tls, seed, "cuda")
+            for depth_test in (True, False):
+                got = cuda_vis.visibility_hard(*inputs, tls, depth_test)
+                want = cuda_vis.visibility_hard_reference(*inputs, tls,
+                                                          depth_test)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (tls, seed, depth_test)

@@ -106,6 +106,139 @@ def probe():
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
+_DTYPE_ALIASES = "jnp dtype aliases: the port names torch dtypes"
+_QUEUED = "module not ported yet (ROADMAP.md section 1, module queue)"
+#: the JAX package's modules whose port has another name
+_RENAMED = {"ops/pallas_rt.py": "ops/cuda_rt.py",
+            "ops/pallas_raster.py": "ops/cuda_raster.py",
+            "diff/pallas_vis.py": "diff/cuda_vis.py",
+            "diff/pallas_texgrad.py": "diff/cuda_texgrad.py"}
+#: module of the JAX package -> {public name the port does not carry:
+#: why}; a module that is absent from the port maps to its reason
+NOT_CARRIED = {
+    "__main__.py": _QUEUED, "cli.py": _QUEUED,
+    "runtime/__init__.py": _QUEUED, "runtime/device.py": _QUEUED,
+    "runtime/perf.py": _QUEUED, "utils/__init__.py": _QUEUED,
+    "utils/image.py": _QUEUED, "utils/tracing.py": _QUEUED,
+    "models/obj.py": _QUEUED, "parallel/__init__.py": _QUEUED,
+    "parallel/draw_shard.py": _QUEUED, "parallel/mesh.py": _QUEUED,
+    "parallel/overlap.py": _QUEUED, "parallel/ray_shard.py": _QUEUED,
+    "parallel/scaling.py": _QUEUED, "parallel/tile_shard.py": _QUEUED,
+    "ref/driver.py": {n: "the frame-loop benchmark, queued (ROADMAP.md "
+                         "section 1, module item 1)"
+                      for n in ("FRAME_LOOP_SENTINEL", "FrameStats",
+                                "compile_frame_loop")},
+    "core/fixed.py": {
+        "I32": _DTYPE_ALIASES, "U32": _DTYPE_ALIASES,
+        "smul32_parts": "a TPU emulation of the 32x32 -> 64-bit product as "
+                        "two int32 halves; the port multiplies in int64"},
+    "geom/cgltrace.py": {
+        "ASSETS_DIR": "the reference assets are absent; trace_path "
+                      "searches the port's own data/"},
+    "geom/native.py": {
+        "available": "a failed native build raises (no silent fallback); "
+                     "SKYBOX_NATIVE=0 bins with numpy"},
+    "ops/pallas_raster.py": {
+        "I32": _DTYPE_ALIASES, "U32": _DTYPE_ALIASES,
+        "LANES": "TPU lane width",
+        "pack_prim_records": "TPU layout: pre-gathered (T, M, 16) records",
+        "supported": "TPU gate (ts * ts a multiple of 128 lanes)"},
+    "ops/pallas_rt.py": {
+        "F32": _DTYPE_ALIASES, "I32": _DTYPE_ALIASES,
+        "LANES": "TPU lane width", "TRI_SUB": "TPU sublane step",
+        "TRI_BLOCK": "TPU VMEM block; the port's is STREAM_TRI_BLOCK",
+        "EPS": "the Moller-Trumbore epsilon lives in rt.intersect.EPS",
+        "PARK_LIMIT": "TPU worklist entry encoding",
+        "ENTRY_LEVEL_SHIFT": "TPU worklist entry encoding",
+        "ENTRY_START_MASK": "TPU worklist entry encoding",
+        "bvh_worklists": "how the TPU brings blocks to a ray tile; a ray "
+                         "walks the pyramid itself in the port"},
+    "diff/pallas_vis.py": {
+        "F32": _DTYPE_ALIASES, "I32": _DTYPE_ALIASES,
+        "LANES": "TPU lane width", "GROUP": "TPU tiles a grid step",
+        "pack_prim_records": "TPU layout: pre-gathered records",
+        "supported": "TPU gate (ts * ts a multiple of 128 lanes)"},
+    "diff/pallas_texgrad.py": {
+        "F32": _DTYPE_ALIASES, "I32": _DTYPE_ALIASES,
+        "BLK": "TPU pixels a grid step", "R_CHUNK": "TPU one-hot row chunk",
+        "supported": "TPU gate"},
+    "diff/pipeline.py": {
+        "F32": _DTYPE_ALIASES, "I32": _DTYPE_ALIASES,
+        "VIS_CHUNK": "sizes the plain reduction, so it lives beside it: "
+                     "diff.cuda_vis.VIS_CHUNK"},
+    "rt/tracer.py": {n: "TPU kernel knob" for n in (
+        "BVH_UNROLL", "BVH_EARLY_EXIT", "BVH_EARLY_EXIT_BOUNCE")},
+    **{m: {n: _DTYPE_ALIASES for n in names} for m, names in (
+        ("ops/deferred.py", ("I32", "U32")), ("rt/bvh.py", ("F32", "I32")),
+        ("rt/intersect.py", ("F32", "I32")), ("rt/wavefront.py",
+                                              ("I32", "U32")),
+        ("raster/edge.py", ("I32",)), ("raster/interp.py", ("F32", "I32")),
+        ("om/blend.py", ("I32", "U32")), ("om/depth_stencil.py", ("U32",)),
+        ("om/merger.py", ("U32",)), ("ref/renderer.py", ("I32", "U32")),
+        ("texture/sampler.py", ("I32", "U32")))},
+}
+
+
+def _public_names(path):
+    """The public names a module's source binds at its top level: defs,
+    classes and assignments (the JAX package is read, not imported)."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    found = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            found.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            found |= {e.id for t in targets for e in ast.walk(t)
+                      if isinstance(e, ast.Name)}
+    return {n for n in found if not n.startswith("_")}
+
+
+def _jax_modules():
+    root = os.path.join(REPO, "skybox_rt_tpu")
+    return sorted(os.path.relpath(os.path.join(d, f), root).replace(
+        os.sep, "/") for d, _, files in os.walk(root) for f in files
+        if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("module", _jax_modules())
+def test_public_names_carried_or_listed(module):
+    """Every public name of every JAX module is in its port, or is listed
+    in NOT_CARRIED with its reason; a listed name that the port gains must
+    leave the list."""
+    port = os.path.join(REPO, "skybox_rt_tpu_torch",
+                        _RENAMED.get(module, module))
+    listed = NOT_CARRIED.get(module, {})
+    if listed == _QUEUED:
+        assert not os.path.exists(port), f"{module} is ported: unlist it"
+        return
+    assert os.path.exists(port), f"{module} has no port and is not listed"
+    missing = (_public_names(os.path.join(REPO, "skybox_rt_tpu", module))
+               - _public_names(port))
+    assert missing == set(listed), (sorted(missing), sorted(listed))
+    assert all(listed.values())
+
+
+def test_to_fixed_matches_jax():
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from skybox_rt_tpu.core import fixed as jax_fixed
+    from skybox_rt_tpu_torch.core import fixed
+    x = np.random.default_rng(0).uniform(-100, 100, 4096).astype(np.float32)
+    x[:4] = (0.0, -0.0, 2.0 ** -24, -(2.0 ** -17))
+    for frac in (fixed.EDGE_FRAC, fixed.ATTR_FRAC - 18):
+        got = fixed.to_fixed(torch.from_numpy(x), frac)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jax_fixed.to_fixed(jnp.asarray(x), frac)))
+        np.testing.assert_array_equal(got.numpy(), fixed.to_fixed_np(x, frac))
+
+
 def test_every_module_listed():
     for m in ("core.fixed", "ops.cuda_raster", "ops.deferred", "ref.driver",
               "interop", "_build", "models.make_synth_trace", "core.device",

@@ -90,12 +90,16 @@ def test_plain_matches_jax_pallas(name):
     if name == "multi6_tb16":
         assert len(blocks["levels"]) >= 2 and blocks["num_blocks"] > 64
     # the blocks carried over equal the ones the port builds itself, which
-    # add the leaf table
+    # add the leaf table; carried without leaves, a block is one leaf with
+    # its own box
     own = {lt: _port_blocks(name, leaf_tris=lt)[1] for lt in LEAF_SIZES}
     for k in ("tri", "bcnt", "s2p", "aabb"):
         assert torch.equal(own[tracer.BVH_LEAF_TRIS][k], blocks[k]), k
     assert own[tracer.BVH_LEAF_TRIS]["level_counts"] == blocks["level_counts"]
-    assert blocks["leaf_table"] is None
+    C = blocks["num_blocks"]
+    assert torch.equal(blocks["leaf_range"],
+                       torch.arange(C + 1, dtype=torch.int32))
+    assert torch.equal(blocks["leaf_table"][:, :6], blocks["levels"][0])
 
     for kind, oq, dq, tm in queries:
         if kind == "any":
@@ -131,6 +135,72 @@ def test_plain_matches_jax_pallas(name):
             ties = hits & (p != p_w)
             assert ties.sum() < 0.01 * hits.sum()
             np.testing.assert_allclose(t[ties], t_w[ties], rtol=1e-5)
+
+
+def _answers(blocks, queries):
+    """Every query's plain answer over ``blocks``: the any hits'
+    occlusion, the closest hits' (prim, t, u, v) and the first two hits of
+    a next-hit walk (slot, prim, t, u, v each)."""
+    out = []
+    for kind, oq, dq, tm in queries:
+        oq, dq, tm = _t(oq), _t(dq), _t(tm)
+        if kind == "any":
+            out.append(cuda_rt.any_hit_bvh_reference(oq, dq, blocks, tm))
+            continue
+        out += cuda_rt.closest_hit_bvh_reference(oq, dq, blocks, tm)
+        R = oq.shape[0]
+        carry = (torch.zeros(R), torch.full((R,), -1, dtype=torch.int32))
+        for _ in range(2):
+            got = cuda_rt.closest_hit_bvh_after_reference(oq, dq, blocks,
+                                                          *carry, tm)
+            out += got
+            carry = (got[2], got[0])
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_carried_blocks_with_leaves_answer_as_the_ports_own(name):
+    """interop.bvh_blocks_from_reference(leaves=) on a JAX block set, with
+    the leaves cut from the JAX BVH carried over: the port's own packing,
+    leaf table and every plain answer bit for bit."""
+    import jax.numpy as jnp
+
+    from skybox_rt_tpu.ops import pallas_rt
+    from skybox_rt_tpu.rt import bvh as jax_bvh
+    from skybox_rt_tpu.rt import intersect as jax_intersect
+
+    verts, faces, tri_block, queries = scenes.bvh_check_queries(name)
+    jbvh = jax_bvh.build(verts, faces)
+    jbs = jax_bvh.build_block_set(jbvh, tri_block=tri_block)
+    jblocks = pallas_rt.prepare_bvh_blocks(*jax_intersect.triangle_arrays(
+        jnp.asarray(verts), jnp.asarray(faces)), jbs)
+    bvh = interop.bvh_from_reference(jbvh)
+    lv = bvh_mod.build_block_leaves(bvh, bvh_mod.build_block_set(
+        bvh, tri_block=tri_block), tracer.BVH_LEAF_TRIS)
+    carried = interop.bvh_blocks_from_reference(jblocks, "cpu", leaves=lv)
+    own = _port_blocks(name)[1]
+    for k in ("tri", "bcnt", "s2p", "aabb", "leaf_range", "leaf_table"):
+        assert torch.equal(carried[k], own[k]), k
+    for a, b in zip(_answers(carried, queries), _answers(own, queries),
+                    strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_prepare_bvh_blocks_takes_the_jax_call(name):
+    """prepare_bvh_blocks(v0, e1, e2, block_set), the JAX entry's call, cuts
+    no leaves: a block is one leaf with its own box, and every plain answer
+    equals the one over the BVH's leaves bit for bit."""
+    tri, leafy, queries = _port_blocks(name)
+    verts, faces, tri_block, _ = scenes.bvh_check_queries(name)
+    bs = bvh_mod.build_block_set(bvh_mod.build(verts, faces),
+                                 tri_block=tri_block)
+    whole = cuda_rt.prepare_bvh_blocks(*tri, bs)
+    assert whole["leaf_table"].shape[0] == whole["num_blocks"]
+    assert leafy["leaf_table"].shape[0] > whole["num_blocks"]
+    for a, b in zip(_answers(whole, queries), _answers(leafy, queries),
+                    strict=True):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("leaf_tris", LEAF_SIZES)
@@ -251,18 +321,22 @@ def test_wrappers_reject_bad_inputs():
             np.zeros(1, np.int32),
             [np.zeros((1, 6), np.float32)] * (cuda_rt.MAX_LEVELS + 1),
             1, 1, "cpu")
-    # no leaf table: every query refuses the blocks, on any device
+    # no leaf cut: a block is one leaf with its own box, and every query
+    # answers as over the leaves
     bare = _duplicate_blocks()
+    assert bare["leaf_range"].tolist() == [0, 1, 2]
     o2 = torch.tensor([[0.25, 0.25, 1.0]])
     d2 = torch.tensor([[0.0, 0.0, -1.0]])
-    with pytest.raises(ValueError, match="leaf table"):
-        cuda_rt.closest_hit_bvh(o2, d2, bare)
-    with pytest.raises(ValueError, match="leaf table"):
-        cuda_rt.closest_hit_bvh_after(o2, d2, bare, torch.zeros(1),
-                                      torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(ValueError, match="leaf table"):
-        cuda_rt.any_hit_bvh(o2, d2, bare, t_max=2.0)
     leafy = _duplicate_blocks(_duplicate_leaves())
+    for a, b in zip(cuda_rt.closest_hit_bvh(o2, d2, bare),
+                    cuda_rt.closest_hit_bvh(o2, d2, leafy), strict=True):
+        assert torch.equal(a, b)
+    carry = (torch.zeros(1), torch.zeros(1, dtype=torch.int32))
+    for a, b in zip(cuda_rt.closest_hit_bvh_after(o2, d2, bare, *carry),
+                    cuda_rt.closest_hit_bvh_after(o2, d2, leafy, *carry),
+                    strict=True):
+        assert torch.equal(a, b)
+    assert cuda_rt.any_hit_bvh(o2, d2, bare, t_max=2.0).tolist() == [True]
     assert cuda_rt.any_hit_bvh(o2, d2, leafy, t_max=2.0).tolist() == [True]
     # leaves that do not tile their blocks' slots in ascending order
     for bad in ({"first": np.array([1, 0, 2])},          # descending

@@ -18,6 +18,11 @@ two queries, their either list order and the clustered query run the same
 arithmetic under the same tie rule: equal bit for bit.  Against the flat query
 (lowest prim id) the check is models.scenes.check_clustered_equals_flat.
 
+The kernels' lanes: a warp of 32 consecutive rays tests an entered block's
+triangles a ray a lane, or across its lanes one ray at a time when fewer than
+``STREAM_LANE_SWITCH`` of its rays enter.  The plain versions count that work
+by warps (``cuda_rt._count_lanes``); the counts are held to the per-ray ones.
+
 The CUDA kernels against the plain versions run only on a card (marker
 ``cuda``):  python -m pytest --noconftest -m cuda tests/test_torch_rt_streamed.py
 """
@@ -211,6 +216,55 @@ def test_short_last_block_and_empty_lists():
         cuda_rt.prepare_stream_blocks(*tri, tri_block=1024)
 
 
+def _lane_stats(name, query, switch, monkeypatch):
+    *_, stream, o, d, tmax = _case(name)
+    monkeypatch.setattr(cuda_rt, "STREAM_LANE_SWITCH", switch)
+    stats = {}
+    if query == "streamed":
+        cuda_rt.closest_hit_streamed_reference(o, d, stream, tmax,
+                                               stats=stats)
+    else:
+        cuda_rt.closest_hit_worklist_reference(
+            o, d, stream, *cuda_rt.active_block_lists(o, d, stream, tmax),
+            tmax, stats=stats)
+    return stats
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("query", ["streamed", "worklist"])
+def test_lane_counts_equal_the_per_ray_counts(name, query, monkeypatch):
+    """Counted by warps, the useful lane-steps are the per-ray triangle
+    tests; a ray a lane on every visit (switch 0) runs the earlier design's
+    lane-steps, and the switch only ever spares lanes."""
+    by_switch = {sw: _lane_stats(name, query, sw, monkeypatch)
+                 for sw in (0, cuda_rt.STREAM_LANE_SWITCH, 33)}
+    for sw, st in by_switch.items():
+        assert st["warp_tri_tests"] == st["tri_tests"] > 0, sw
+        assert st["tri_tests"] <= st["lane_steps"] <= st["lane_steps_ray"]
+        for k in ("slab_tests", "slab_pass", "tri_tests", "warp_visits",
+                  "lane_steps_ray"):
+            assert st[k] == by_switch[0][k], (sw, k)
+    assert by_switch[0]["lane_steps"] == by_switch[0]["lane_steps_ray"]
+    assert by_switch[33]["lane_steps"] < by_switch[0]["lane_steps"]
+
+
+def test_lane_counts_by_hand():
+    """Two warps: rays 0-2 and 40 enter a block of 40 triangles, rays 3 and
+    41-63 a block of 10."""
+    stats = {}
+    cuda_rt._count_lanes(stats, torch.tensor([0, 1, 2, 40]),
+                         torch.tensor([40, 40, 40, 40]))
+    cuda_rt._count_lanes(stats, torch.tensor([3] + list(range(41, 64))), 10)
+    S = cuda_rt.STREAM_LANE_SWITCH
+    assert 1 < S <= 23
+    # warp 0: 3 rays of 40 (2 passes each), then 1 of 10; warp 1: 1 of 40,
+    # then 23 of 10 (a ray a lane)
+    assert stats == {"warp_visits": 4,
+                     "warp_tri_tests": 3 * 40 + 10 + 40 + 23 * 10,
+                     "lane_steps_ray": 32 * (40 + 10 + 40 + 10),
+                     "lane_steps": 32 * (3 * 2 + 1 + 2) + 32 * 10}
+
+
 @pytest.mark.parametrize("engine", ["pallas_streamed", "pallas_worklist"])
 def test_engine_frame_equals_the_clustered_frame(engine):
     """make_frame_fn at 64x64, 2 bounces, shadows: the comparison engines
@@ -239,16 +293,29 @@ def test_engine_frame_equals_the_clustered_frame(engine):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_cuda_kernels_match_plain(name):
+def test_cuda_kernels_match_plain(name, monkeypatch):
+    """Both kernels against their plain versions, every output bit for bit:
+    at the case's tri_block and at 1, 63, 64 and 48 (a short last block),
+    with the lane switch at 0 (a ray a lane), the shipped value and 33
+    (triangles across lanes for every block)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no interpret mode")
-    *_, stream, o, d, tmax = _case(name, "cuda")
-    want = cuda_rt.closest_hit_streamed_reference(o, d, stream, tmax)
-    got = cuda_rt.closest_hit_streamed(o, d, stream, t_max=tmax)
-    lists = cuda_rt.active_block_lists(o, d, stream, tmax)
-    got_w = cuda_rt.closest_hit_worklist(o, d, stream, t_max=tmax,
-                                         lists=lists)
-    want_w = cuda_rt.closest_hit_worklist_reference(o, d, stream, *lists,
-                                                    tmax)
-    for a, b, c, e in zip(got, want, got_w, want_w):
-        assert torch.equal(a, b) and torch.equal(c, e) and torch.equal(a, c)
+    *_, tri, stream0, o, d, tmax = _case(name, "cuda")
+    order = stream0["order"]
+    for tri_block in (stream0["tri_block"], 1, 63, 64, 48):
+        stream = cuda_rt.prepare_stream_blocks(
+            *tri, order=None if order is None else order.cpu().numpy(),
+            tri_block=tri_block)
+        want = cuda_rt.closest_hit_streamed_reference(o, d, stream, tmax)
+        lists = cuda_rt.active_block_lists(o, d, stream, tmax)
+        want_w = cuda_rt.closest_hit_worklist_reference(o, d, stream,
+                                                        *lists, tmax)
+        for switch in (0, cuda_rt.STREAM_LANE_SWITCH, 33):
+            monkeypatch.setattr(cuda_rt, "STREAM_LANE_SWITCH", switch)
+            got = cuda_rt.closest_hit_streamed(o, d, stream, t_max=tmax)
+            got_w = cuda_rt.closest_hit_worklist(o, d, stream, t_max=tmax,
+                                                 lists=lists)
+            torch.cuda.synchronize()
+            for a, b, c, e in zip(got, want, got_w, want_w):
+                assert torch.equal(a, b) and torch.equal(c, e) \
+                    and torch.equal(a, c), (tri_block, switch)
