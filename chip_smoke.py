@@ -73,9 +73,18 @@ exits non-zero, and only a run where every phase passed prints the final
                real 1024x1024 frame, and on the whole primary and
                primary-shadow launches, with group and cluster slab tests a
                ray (the any hit's too: it walks the same groups).  On the
-               same rays the clustered kernels against the flat one: occlusion and miss masks equal, every output equal
-               where the prims agree, t within rtol 1e-5 where they do not
-               (ties across clusters, under 1 % of the hits)
+               same rays the clustered kernels against the flat one:
+               occlusion and miss masks equal, every output equal where the
+               prims agree, t within rtol 1e-5 where they do not (ties
+               across clusters, under 1 % of the hits).  The flat kernel's
+               blocks of 128 rays that share one origin (the primary
+               sample's all, bounce 1's none: ``flat_blocks_shared``), and
+               the flat kernel against its plain version on four blocks of
+               primary rays, one with an origin x of -0.0 for the eye's 0.0
+               and one with an origin one ulp off (``flat_origin_edges``).
+               The flat entry's bound counts the tests' steps the kernel
+               runs (ops.cuda_rt.flat_work_counts on the primary sample,
+               scaled to the launch)
  12. rt_small_frame_256 — make_frame_fn with the default engine at 256x256,
                2 bounces, shadows, plain and textured, against the committed
                JAX golden (data/rt_small_256.npz): atol 1e-4 and >= 99.9 % of
@@ -92,7 +101,8 @@ exits non-zero, and only a run where every phase passed prints the final
  14. rt_small_timing — CUDA events, median of 20 (the flat kernel: of 5):
                each of the six launches' kernels alone (around the call and
                as a CUDA graph's replay), the flat kernel on the primary
-               launch, the plain versions on the samples, the whole
+               launch (and as a graph's replay, of 5), the plain versions on
+               the samples, the whole
                1024x1024 and 256x256 frames
 
   15. diff_vis_vs_plain — the differentiable pipeline's hard-mode visibility
@@ -191,9 +201,15 @@ exits non-zero, and only a run where every phase passed prints the final
                and on 65,536 rays of each of the six launches of the small
                scene's 1024x1024 frame and on its whole primary launch; equal
                to each other and to the clustered kernel on every ray, against
-               the flat kernel tie-aware; both engines' 1024x1024 frames: 3 + 3
-               launches of their kernel (the closest hit, and the closest hit
-               inside the bound as the occlusion query), image equal to the
+               the flat kernel tie-aware (on the check scenes the flat kernel
+               against its plain version too, bit for bit); on the same rays
+               the worklist's prepass kernel against its plain version,
+               element for element, near to far and in ascending id, and on
+               65,536 primary rays against the large scene's records at
+               tri_block 64 (2,888 blocks); both engines' 1024x1024 frames:
+               3 + 3 launches of their kernel (the closest hit, and the
+               closest hit inside the bound as the occlusion query), and for
+               the worklist engine 6 of the prepass kernel, image equal to the
                clustered frame's (max |diff| 0).  Beside the tests a ray, the
                kernels' lane efficiency on each whole launch (``lanes``: their
                plain versions' counts over warps of 32 consecutive rays,
@@ -207,8 +223,10 @@ exits non-zero, and only a run where every phase passed prints the final
                worklist kernels on the small scene's primary launch (around
                the call and as a CUDA graph's replay) beside the clustered
                and the flat one, the streamed kernel on each of the frame's
-               six launches, the worklist's prepass apart from its kernel,
-               the three engines' frames
+               six launches, the worklist's prepass kernel apart (events,
+               graph, its plain version of 5, its bound), the flat kernel on
+               65,536 rays of bounce 1 (events, graph, its bound), the three
+               engines' frames
 
   26. apps_sgemm_vs_plain — kernel #12 (csrc/apps_sgemm.cu, one fused
                multiply-add a step) against its plain version (an exact fmaf
@@ -269,8 +287,12 @@ draw, ``frame_ms`` their sum, ``frame_bound_ms`` the sum of their bounds,
 worklist entries give the small scene's primary launch (``graph_ms`` too),
 the streamed one its frame's six launches (``launch_ms``,
 ``launch_graph_ms``, their sums ``frame_ms``, ``frame_graph_ms``), both the
-lane switch and lane efficiency of phase 24; the worklist's ``prepass_ms``
-is its plain-torch prepass, which the bound leaves out.  The visibility
+lane switch and lane efficiency of phase 24; the worklist's ``prepass_ms``,
+``prepass_graph_ms`` and ``prepass_bound_ms`` are its prepass kernel's,
+which has an entry of its own too (``rt_active_block_lists``: a slab test
+of every ray against every block).  The flat entry's bound counts the
+steps of the tests its kernel runs (``all_pairs_bound_ms``: every pair's
+whole test), ``bounce1_sample`` its time on bounce 1's sample.  The visibility
 entry adds ``graph_ms`` and the kept pixel steps and cull tests that its
 operations term counts.
 
@@ -328,6 +350,15 @@ RASTER_CULL_INT_OPS = 80
 # slab test (6 subtracts, 6 multiplies, 12 min/max, 1 compare)
 MT_OPS = 53
 SLAB_OPS = 25
+# ... and the same test's steps in the flat kernel (csrc/rt_clustered.cu),
+# which stops a test whose outcome is fixed: pv and det with |det|'s compare
+# (16) on every pair; tv, qv and t_num (17) a test past det, or once a record
+# in a block whose rays share their origin; the t-sign test (2); the
+# reciprocal, u and u >= 0 (8) a test the sign test keeps; v, t and the four
+# compares left (12) a test with u >= 0.  16 + 17 + 8 + 12 is MT_OPS; the
+# sign test comes on top.
+FLAT_DET_OPS, FLAT_TERMS_OPS, FLAT_SIGN_OPS = 16, 17, 2
+FLAT_U_OPS, FLAT_REST_OPS = 8, 12
 # the leaf sizes (rt.tracer.BVH_LEAF_TRIS) the BVH-block kernels are held to
 # their plain versions at on the check scenes
 LEAF_SWEEP = (1, 2, 4, 8, 16, 32)
@@ -426,6 +457,35 @@ def walk_ops(stats) -> float:
     return (stats.get("tri_tests", 0) * MT_OPS
             + (stats.get("blocks_entered", 0) + stats.get("slab_tests", 0))
             * SLAB_OPS)
+
+
+def flat_ops(counts, P) -> float:
+    """Operations of the flat kernel from ops.cuda_rt.flat_work_counts:
+    the terms staged once a record in each block of shared origin, and each
+    test's steps as far as it went."""
+    return (counts["shared_blocks"] * P * FLAT_TERMS_OPS
+            + counts["pairs"] * FLAT_DET_OPS
+            + counts["det_pass_general"] * FLAT_TERMS_OPS
+            + counts["det_pass"] * FLAT_SIGN_OPS
+            + counts["t_pass"] * FLAT_U_OPS + counts["u_pass"] * FLAT_REST_OPS)
+
+
+def flat_bound(o, d, tm, flat, counts):
+    """Bound of one flat launch over rays o, d: rays, t_max and records read
+    once, (prim, t, u, v) written once, against the operations of
+    ``counts`` (:func:`flat_ops`); beside it the bound of every pair's whole
+    test (the earlier, all-pairs count) and the shares of the pairs that
+    went past det, past the t-sign test and past u."""
+    P, pairs = flat.shape[0], counts["pairs"]
+    moved = nbytes(o, d, tm, flat) + 16 * o.shape[0]
+    return {**bound(moved, flat_ops(counts, P)),
+            "all_pairs_bound_ms": bound(moved, o.shape[0] * P
+                                        * MT_OPS)["bound_ms"],
+            "det_pass_share": counts["det_pass"] / pairs,
+            "t_pass_share": counts["t_pass"] / pairs,
+            "u_pass_share": counts["u_pass"] / pairs,
+            "blocks": counts["blocks"],
+            "shared_origin_blocks": counts["shared_blocks"]}
 
 
 def tests_per_ray(stats, rays) -> dict:
@@ -829,6 +889,8 @@ def small_scene(textured=False):
 def small_phases(dev, card) -> list:
     """Phases 11 to 14; returns the three small-scene kernels' entries of
     the kernels line."""
+    import math
+
     from skybox_rt_tpu_torch.geom import cgltrace
     from skybox_rt_tpu_torch.models import scenes
     from skybox_rt_tpu_torch.ops import cuda_rt
@@ -945,11 +1007,11 @@ def small_phases(dev, card) -> list:
     C, P = clusters["num_clusters"], clusters["num_prims"]
 
     def launch_bounds(kind, o, d, tm, tri_tests, slab_tests):
-        """Bounds of one launch of the clustered and of the flat kernel:
-        rays, records and the cluster and group tables read once, the
-        outputs (prim, t, u, v, or one occlusion byte a ray) written once,
-        against the tests the plain version counted (slab tests of groups
-        and clusters; flat: every triangle for every ray)."""
+        """Bound of one launch of a clustered kernel: rays, records and the
+        cluster and group tables read once, the outputs (prim, t, u, v, or
+        one occlusion byte a ray) written once, against the tests the plain
+        version counted (slab tests of groups and clusters).  The flat
+        kernel's: :func:`flat_bound`."""
         R = o.shape[0]
         written = R if kind == "any" else 16 * R
         moved = nbytes(o, d, tm, clusters["tri"], clusters["table"],
@@ -957,8 +1019,7 @@ def small_phases(dev, card) -> list:
                        clusters["group_visit"]) + written
         if kind == "closest":
             moved += nbytes(clusters["order"])
-        return (bound(moved, tri_tests * MT_OPS + slab_tests * SLAB_OPS),
-                bound(nbytes(o, d, tm, flat) + 16 * R, R * P * MT_OPS))
+        return bound(moved, tri_tests * MT_OPS + slab_tests * SLAB_OPS)
 
     def slab_tests(stats):
         return stats["slab_tests"] + stats.get("group_slab_tests", 0)
@@ -979,11 +1040,11 @@ def small_phases(dev, card) -> list:
         lambda o, d: cuda_rt.closest_hit_clustered(o, d, clusters),
         lambda o, d, tm: cuda_rt.any_hit_clustered(o, d, clusters, t_max=tm),
         o1024, d1024)
-    classes = {}
+    classes, samples = {}, {}
     for name, launch in zip(LAUNCH_NAMES, launches):
         kind, o, d, tm = launch
         R = o.shape[0]
-        os_, ds_, tms = sample_launch(name, launch)
+        os_, ds_, tms = samples[name] = sample_launch(name, launch)
         stats = {}
         out, got = compare(kind, os_, ds_, tms, clusters, flat, stats)
         n = os_.shape[0]
@@ -991,14 +1052,44 @@ def small_phases(dev, card) -> list:
         classes[name] = {
             "kind": kind, "launch_rays": R, "sample_rays": n,
             "parked_in_sample": int((os_[:, 0] > 1e7).sum()),
+            # the flat kernel's blocks of 128 sample rays, and those whose
+            # rays share one origin (the primary's: the camera's eye)
+            "flat_blocks_shared": cuda_rt.flat_shared_origin_blocks(os_),
             "hits_in_sample": int(found.sum()), **out,
             **per_ray(stats, n),
             # the sample's counts scaled to the launch's rays
             "bound": launch_bounds(kind, o, d, tm, stats["tri_tests"] * R / n,
-                                   slab_tests(stats) * R / n)[0]}
+                                   slab_tests(stats) * R / n)}
     for name in ("bounce1", "bounce1_shadow"):
         if classes[name]["parked_in_sample"] == 0:
             raise AssertionError(f"{name}: no parked ray in the sample")
+    # the primary sample's blocks take the shared-origin path, bounce 1's
+    # the general one (but for blocks of parked rays only)
+    blocks, shared = classes["primary"]["flat_blocks_shared"]
+    blocks_b1, shared_b1 = classes["bounce1"]["flat_blocks_shared"]
+    if shared != blocks or shared_b1 == blocks_b1:
+        raise AssertionError(f"flat blocks of one origin: {shared} of "
+                             f"{blocks} (primary), {shared_b1} of "
+                             f"{blocks_b1} (bounce 1)")
+    # the flat kernel's shared-origin test compares bits: four blocks of
+    # primary rays, block 0 with one origin x of -0.0 for the eye's 0.0,
+    # block 1 with one origin y one ulp off, against the plain version
+    os_, ds_, _ = samples["primary"]
+    oe, de = os_[:512].clone(), ds_[:512].contiguous()
+    if oe[0, 0].item() != 0.0 or math.copysign(1.0, oe[0, 0].item()) < 0:
+        raise AssertionError("the -0.0 case needs an eye at x = +0.0")
+    oe[5, 0] = -0.0
+    oe[130, 1] = torch.nextafter(oe[130, 1], torch.tensor(math.inf,
+                                                          device=dev))
+    origin_edges = {"rays": 512, "blocks_shared":
+                    cuda_rt.flat_shared_origin_blocks(oe)}
+    origin_edges["rays_differ"], origin_edges["max_abs_err"] = differ(
+        cuda_rt.closest_hit_pallas(oe, de, flat),
+        cuda_rt.closest_hit_pallas_reference(oe, de, flat))
+    if origin_edges["blocks_shared"] != (4, 2) \
+            or origin_edges["rays_differ"]:
+        raise AssertionError(f"flat kernel at the origin edges: "
+                             f"{origin_edges}")
 
     # 11c. the whole primary and primary-shadow launches: the shapes of the
     # kernels line (the flat kernel's plain version on the primary one only)
@@ -1012,8 +1103,8 @@ def small_phases(dev, card) -> list:
         out, _ = compare(kind, o, d, tm, clusters, flat, stats,
                          flat_plain=kind == "closest")
         R = o.shape[0]
-        mine, flat_bound = launch_bounds(kind, o, d, tm, stats["tri_tests"],
-                                         slab_tests(stats))
+        mine = launch_bounds(kind, o, d, tm, stats["tri_tests"],
+                             slab_tests(stats))
         common = {"route": "cuda",
                   "source": "skybox_rt_tpu_torch/csrc/rt_clustered.cu",
                   "launches": None, "ms": None,
@@ -1026,11 +1117,22 @@ def small_phases(dev, card) -> list:
             "plain_ms": out["plain_ms"], **mine,
             "rays_differ": out["rays_differ"], **per_ray(stats, R)})
         if kind == "closest":
+            # the flat kernel's work counted on the primary sample and
+            # scaled to the launch's rays; its blocks are the launch's own
+            counts = cuda_rt.flat_work_counts(*samples["primary"][:2], flat)
+            scale = R * P / counts["pairs"]
+            for k in ("pairs", "det_pass", "det_pass_general", "t_pass",
+                      "u_pass"):
+                counts[k] *= scale
+            counts["blocks"], counts["shared_blocks"] = \
+                cuda_rt.flat_shared_origin_blocks(o)
             flat_entry = {
                 "name": "rt_closest_hit_flat",
                 "replaces": "skybox_rt_tpu/ops/pallas_rt.py:112",
                 **common, "max_abs_err": out["flat_max_abs_err"],
-                "plain_ms": out["flat_plain_ms"], **flat_bound,
+                "plain_ms": out["flat_plain_ms"],
+                **flat_bound(o, d, tm, flat, counts),
+                "work_counted_on": "the 65,536-ray primary sample, scaled",
                 "rays_differ": out["flat_rays_differ"],
                 "tri_tests_per_ray": P,
                 "prims_tied_with_clustered": out["prims_tied_with_flat"]}
@@ -1038,7 +1140,7 @@ def small_phases(dev, card) -> list:
     phase("rt_clustered_vs_plain", small=small, triangles=P, clusters=C,
           groups=clusters["num_groups"],
           cluster_group=clusters["cluster_group"], classes=classes,
-          equal=True,
+          flat_origin_edges=origin_edges, equal=True,
           rays_differ=small["rays_differ"] + small["flat_rays_differ"]
           + sum(c["rays_differ"] + c["flat_rays_differ"]
                 for c in classes.values())
@@ -1154,14 +1256,16 @@ def small_phases(dev, card) -> list:
         entry["frame_graph_ms"] = sum(timing[n]["graph_ms"] for n in mine)
         entry["frame_bound_ms"] = sum(classes[n]["bound"]["bound_ms"]
                                       for n in mine)
-    entries[2]["ms"] = median_ms(
-        lambda: cuda_rt.closest_hit_pallas(o1024, d1024, flat), reps=5,
-        warmup=1)
+    def flat_primary():
+        return cuda_rt.closest_hit_pallas(o1024, d1024, flat)
+    entries[2]["ms"] = median_ms(flat_primary, reps=5, warmup=1)
+    entries[2]["graph_ms"] = graph_ms(flat_primary, reps=5)
     frame_ms = median_ms(lambda: frame1024(o1024, d1024))
     frame256_ms = median_ms(lambda: frame256(o256, d256))
     kernels_ms = sum(t["kernel_ms"] for t in timing.values())
     phase("rt_small_timing", card=card, reps=REPS, launches=timing,
-          flat_primary={"ms": entries[2]["ms"], "reps": 5,
+          flat_primary={"ms": entries[2]["ms"],
+                        "graph_ms": entries[2]["graph_ms"], "reps": 5,
                         "mrays_per_s": RT_SIZE * RT_SIZE / entries[2]["ms"]
                         / 1e3},
           frame_1024={"ms": frame_ms, "kernels_ms": kernels_ms,
@@ -1959,17 +2063,39 @@ def config3_phases(dev, card) -> list:
 
     # 24. the streamed and worklist kernels: the check scenes, then the six
     # launches of the small scene's 1024x1024 frame
-    def stream_compare(o, d, tm, stream, clusters, flat, stats=None):
+    def prepass_compare(o, d, tm, stream):
+        """The prepass kernel against its plain version, element for
+        element, in both orders; raises on any difference.  Returns the
+        near-to-far lists and the plain version's seconds (near to far)."""
+        out = {}
+        for f2b in (True, False):
+            got = cuda_rt.active_block_lists(o, d, stream, tm, f2b)
+            want, secs = timed(lambda: cuda_rt.active_block_lists_reference(
+                o, d, stream, tm, f2b))
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(
+                    f"prepass kernel != plain version (front_to_back {f2b}):"
+                    f" {int((got[0] != want[0]).sum())} list entries, "
+                    f"{int((got[1] != want[1]).sum())} counts differ")
+            out[f2b] = (got, secs)
+        return out[True]
+
+    def stream_compare(o, d, tm, stream, clusters, flat, stats=None,
+                       flat_plain=False):
         """Both kernels against their plain versions, against each other
         and the clustered kernel (equal on every ray) and the flat one
-        (tie-aware); raises on any mismatch."""
+        (tie-aware; with ``flat_plain`` also against its plain version, bit
+        for bit); the prepass kernel against its plain version; raises on
+        any mismatch."""
         out = {}
         got = cuda_rt.closest_hit_streamed(o, d, stream, t_max=tm)
         want, out["streamed_plain_ms"] = timed(
             lambda: cuda_rt.closest_hit_streamed_reference(
                 o, d, stream, tm, stats=None if stats is None else
                 stats.setdefault("streamed", {})))
-        lists = cuda_rt.active_block_lists(o, d, stream, tm)
+        lists, prepass_s = prepass_compare(o, d, tm, stream)
+        out["prepass_plain_ms"] = prepass_s * 1e3
         got_w = cuda_rt.closest_hit_worklist(o, d, stream, t_max=tm,
                                              lists=lists)
         want_w, out["worklist_plain_ms"] = timed(
@@ -1984,12 +2110,16 @@ def config3_phases(dev, card) -> list:
         out["streamed_differ_from_worklist"] = differ(got, got_w)[0]
         out["differ_from_clustered"] = differ(
             got, cuda_rt.closest_hit_clustered(o, d, clusters, t_max=tm))[0]
+        got_f = cuda_rt.closest_hit_pallas(o, d, flat, t_max=tm)
+        if flat_plain:
+            out["flat_rays_differ"] = differ(
+                got_f, cuda_rt.closest_hit_pallas_reference(o, d, flat,
+                                                            tm))[0]
         if any(out[k] for k in out if "differ" in k):
             raise AssertionError(f"streamed / worklist kernels: {out}")
         out["prims_tied_with_flat"] = scenes.check_clustered_equals_flat(
             [x.cpu().numpy() for x in got],
-            [x.cpu().numpy() for x in cuda_rt.closest_hit_pallas(
-                o, d, flat, t_max=tm)])
+            [x.cpu().numpy() for x in got_f])
         out["mean_list_length"] = float(lists[1].float().mean())
         return out
 
@@ -2011,16 +2141,19 @@ def config3_phases(dev, card) -> list:
                 "lane_efficiency_ray_a_lane": useful / ray if ray else None,
                 "warp_visits": stats.get("warp_visits", 0)}
 
-    checks = {"cases": 0, "rays_differ": 0, "prims_tied_with_flat": 0}
+    checks = {"cases": 0, "rays_differ": 0, "prims_tied_with_flat": 0,
+              "flat_rays_differ": 0, "prepass_lists_equal": True}
     for name in sorted(scenes.CLUSTER_CHECK_SCENES):
         verts, faces, _, queries = scenes.cluster_check_queries(name)
         packed = pack(verts, faces, bvh_mod.build(verts, faces), 24)
         for _, _, o, d, tm in queries:
             tm = None if tm is None else cuda_rt._per_ray_tmax(
                 on_card(tm) if np.ndim(tm) else tm, o.shape[0], dev)
-            out = stream_compare(on_card(o), on_card(d), tm, *packed)
+            out = stream_compare(on_card(o), on_card(d), tm, *packed,
+                                 flat_plain=True)
             checks["cases"] += 1
             checks["prims_tied_with_flat"] += out["prims_tied_with_flat"]
+            checks["flat_rays_differ"] += out["flat_rays_differ"]
 
     scene, cam = small_scene()
     scene.finalize()
@@ -2045,6 +2178,23 @@ def config3_phases(dev, card) -> list:
             **{f"{q}_{k}_per_ray": stats[q][k] / RT_SAMPLE
                for q in ("streamed", "worklist")
                for k in ("slab_tests", "tri_tests")}}
+    # the prepass at more than 2,048 blocks: the large scene's records in
+    # prim order at the shipped tri_block, on 65,536 of its camera's primary
+    # rays (every 16th, so a tile spans two image rows)
+    lv, lf, _ = scenes.sphere_field(copies=9, subdiv=5)
+    big = cuda_rt.prepare_stream_blocks(*intersect.triangle_arrays(
+        on_card(lv), on_card(np.asarray(lf, np.int64))))
+    if big["num_blocks"] < 2048:
+        raise AssertionError(f"the large case has {big['num_blocks']} "
+                             f"blocks")
+    lo, ld = tracer.camera_rays(cam, RT_SIZE, RT_SIZE, dev)
+    big_lists, big_s = prepass_compare(lo[::16].contiguous(),
+                                       ld[::16].contiguous(), None, big)
+    big_case = {"triangles": int(lf.shape[0]), "blocks": big["num_blocks"],
+                "rays": RT_SAMPLE, "equal": True,
+                "mean_list_length": float(big_lists[1].float().mean()),
+                "plain_ms": big_s * 1e3}
+    del big, big_lists
     # the whole primary launch: the shapes of the kernels line
     _, o, d, tm = launches[0]
     stats = {}
@@ -2078,6 +2228,22 @@ def config3_phases(dev, card) -> list:
             "tri_tests_per_ray": stats[q]["tri_tests"] / R,
             "lane_switch": cuda_rt.STREAM_LANE_SWITCH,
             **lane_figures(stats[q])})
+    # the prepass: rays read once, the lists and counts written once, a
+    # slab test of every (ray, block) pair
+    NB = stream["num_blocks"]
+    prepass_entry = {
+        "name": "rt_active_block_lists", "route": "cuda",
+        "source": "skybox_rt_tpu_torch/csrc/rt_streamed.cu",
+        "replaces": "skybox_rt_tpu/ops/pallas_rt.py:449",
+        "launches": None, "max_abs_err": 0, "ms": None,
+        "plain_ms": primary["prepass_plain_ms"],
+        **bound(nbytes(o, d, tm, stream["aabb"], *lists),
+                R * NB * SLAB_OPS),
+        "library_ms": None,     # no single PyTorch call computes this
+        "rays": R, "blocks": NB,
+        "mean_list_length": primary["mean_list_length"],
+        "large_case": big_case}
+    stream_entries[1]["prepass_bound_ms"] = prepass_entry["bound_ms"]
     # both engines' full-width frames: 3 + 3 launches of their one kernel
     # (closest, and the closest hit inside the bound as the occlusion
     # query), the image the clustered frame's
@@ -2093,14 +2259,20 @@ def config3_phases(dev, card) -> list:
         torch.cuda.synchronize()
         got_counts = dict(cuda_rt.launch_counts)
         key = entry["name"].removeprefix("rt_")
-        if got_counts != {key: 6}:
+        # the worklist engine's every query runs its prepass kernel first
+        want_counts = {key: 6}
+        if engine == "pallas_worklist":
+            want_counts["active_block_lists"] = 6
+        if got_counts != want_counts:
             raise AssertionError(f"{engine} frame launched {got_counts}, "
-                                 f"expected 6 of {key}")
+                                 f"expected {want_counts}")
         max_diff = float((img_e - base).abs().max())
         if max_diff != 0.0:
             raise AssertionError(f"{engine} frame != clustered frame: max "
                                  f"|diff| {max_diff}")
         entry["launches"] = 6
+        if engine == "pallas_worklist":
+            prepass_entry["launches"] = got_counts["active_block_lists"]
         frames[engine] = {"launches": got_counts,
                           "max_abs_diff_clustered_frame": max_diff,
                           "fn": (fn_e, oe, de)}
@@ -2108,7 +2280,7 @@ def config3_phases(dev, card) -> list:
           blocks=stream["num_blocks"], tri_block=stream["tri_block"],
           ray_tile=cuda_rt.STREAM_RAY_TILE,
           lane_switch=cuda_rt.STREAM_LANE_SWITCH, lanes=lanes,
-          classes=classes,
+          classes=classes, prepass_large_case=big_case,
           primary={k: v for k, v in primary.items()},
           frames={e: {k: v for k, v in f.items() if k != "fn"}
                   for e, f in frames.items()},
@@ -2191,17 +2363,42 @@ def config3_phases(dev, card) -> list:
     s_entry["frame_graph_ms"] = sum(s_entry["launch_graph_ms"].values())
     w_entry["ms"], w_entry["graph_ms"] = median_ms(worklist), graph_ms(
         worklist)
-    w_entry["prepass_ms"] = median_ms(
-        lambda: cuda_rt.active_block_lists(o, d, stream), reps=5, warmup=1)
-    w_entry["with_prepass_ms"] = median_ms(
-        lambda: cuda_rt.closest_hit_worklist(o, d, stream), reps=5, warmup=1)
+    def prepass():
+        return cuda_rt.active_block_lists(o, d, stream)
+
+    def with_prepass():
+        return cuda_rt.closest_hit_worklist(o, d, stream)
+    prepass_entry["ms"] = w_entry["prepass_ms"] = median_ms(prepass)
+    prepass_entry["graph_ms"] = w_entry["prepass_graph_ms"] = graph_ms(
+        prepass)
+    w_entry["prepass_plain_ms"] = median_ms(
+        lambda: cuda_rt.active_block_lists_reference(o, d, stream), reps=5,
+        warmup=1)
+    w_entry["with_prepass_ms"] = median_ms(with_prepass)
+    w_entry["with_prepass_graph_ms"] = graph_ms(with_prepass)
+    # the flat kernel on 65,536 rays of bounce 1, whose blocks differ in
+    # origin: the general path, its work counted on the same rays
+    ob, db, _ = sample_launch("bounce1", launches[2])
+
+    def flat_bounce():
+        return cuda_rt.closest_hit_pallas(ob, db, flat)
+    flat_b = {"rays": int(ob.shape[0]), "ms": median_ms(flat_bounce),
+              "graph_ms": graph_ms(flat_bounce),
+              "bound": flat_bound(ob, db, None, flat,
+                                  cuda_rt.flat_work_counts(ob, db, flat))}
     small = {"streamed_ms": s_entry["ms"], "worklist_ms": w_entry["ms"],
              "streamed_graph_ms": s_entry["graph_ms"],
              "worklist_graph_ms": w_entry["graph_ms"],
              "streamed_launch_ms": s_entry["launch_ms"],
              "streamed_launch_graph_ms": s_entry["launch_graph_ms"],
              "worklist_prepass_ms": w_entry["prepass_ms"],
+             "worklist_prepass_graph_ms": w_entry["prepass_graph_ms"],
+             "worklist_prepass_plain_ms": w_entry["prepass_plain_ms"],
+             "worklist_prepass_bound_ms": prepass_entry["bound_ms"],
              "worklist_with_prepass_ms": w_entry["with_prepass_ms"],
+             "worklist_with_prepass_graph_ms":
+                 w_entry["with_prepass_graph_ms"],
+             "flat_bounce1_sample": flat_b,
              "clustered_ms": median_ms(
                  lambda: cuda_rt.closest_hit_clustered(o, d, clusters)),
              "flat_ms": median_ms(
@@ -2214,7 +2411,7 @@ def config3_phases(dev, card) -> list:
     small["clustered_frame_ms"] = median_ms(lambda: base_fn(o1024, d1024))
     phase("rt_config3_timing", card=card, reps=REPS, config3=t,
           small_scene_primary=small)
-    return [after_entry] + stream_entries
+    return [after_entry] + stream_entries + [prepass_entry], flat_b
 
 
 APPS_GEMM = 4096        # the full-size product: 4096 x 4096 x 4096
@@ -2854,8 +3051,12 @@ def main() -> int:
         "mpix_per_s": SIZE * SIZE * draws / frame_ms / 1e3}
     phase("timing", card=card, reps=REPS, **timings)
 
-    rt_entries = (rt_phases(dev, card) + small_phases(dev, card)
-                  + diff_phases(dev, card) + config3_phases(dev, card)
+    rt_entries = rt_phases(dev, card) + small_phases(dev, card) \
+        + diff_phases(dev, card)
+    config3_entries, flat_bounce = config3_phases(dev, card)
+    next(e for e in rt_entries if e["name"] == "rt_closest_hit_flat")[
+        "bounce1_sample"] = flat_bounce
+    rt_entries = (rt_entries + config3_entries
                   + apps_phases(dev, card))
 
     phase("total", seconds=time.perf_counter() - T0)

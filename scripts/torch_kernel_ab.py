@@ -1,6 +1,7 @@
-"""Time kernel #4 (hard visibility) and kernels #10 / #11 (streamed and
-worklist closest hit) of one checkout of the port on the card, so that two
-checkouts can be compared in turns within one machine.
+"""Time kernel #4 (hard visibility), kernels #10 / #11 (streamed and
+worklist closest hit, and the worklist's prepass) and kernel #9 (the flat
+closest hit) of one checkout of the port on the card, so that two checkouts
+can be compared in turns within one machine.
 
     python3 scripts/torch_kernel_ab.py [--root DIR] [--lane-switch N ...]
 
@@ -18,7 +19,13 @@ the wrapper's host work):
     captured from the port's trace_rays; the shadow launches as the
     closest hit inside their bound, as the ``pallas_streamed`` engine runs
     them), their sum, and the ``pallas_streamed`` frame (median of 5);
-  * ``worklist``   — #11 on the primary launch, its lists made once.
+  * ``worklist``   — #11 on the primary launch, its lists made once; the
+    prepass (``active_block_lists``) alone on the primary launch and on
+    bounce 1 (``prepass_graph_ms`` only where the prepass is a kernel); the
+    ``pallas_worklist`` frame (median of 5);
+  * ``flat``       — #9 on the primary launch (1,048,576 rays sharing the
+    camera's origin; median of 5) and on 65,536 rays of bounce 1 (origins
+    that differ; chip_smoke.sample_launch).
 
 ``--lane-switch N ...`` (a checkout whose ops.cuda_rt has
 STREAM_LANE_SWITCH) adds ``lane_switch``: #10's six launches as graph
@@ -110,8 +117,36 @@ def main(argv=None) -> int:
         scene, cam, tracer.RTConfig(engine="pallas_streamed", **kw))
     s["frame_ms"] = cs.median_ms(lambda: fn_e(oe, de), reps=5, warmup=1)
     out["streamed"] = s
-    out["worklist"] = {"primary_ms": cs.median_ms(worklist),
-                       "primary_graph_ms": cs.graph_ms(worklist)}
+    _, o2, d2, _ = launches[2]
+    kernel_prepass = hasattr(cuda_rt, "active_block_lists_reference")
+
+    def prepass(lo, ld):
+        return lambda: cuda_rt.active_block_lists(lo, ld, stream)
+
+    w = {"primary_ms": cs.median_ms(worklist),
+         "primary_graph_ms": cs.graph_ms(worklist)}
+    for name, (lo, ld) in (("primary", (o1, d1)), ("bounce1", (o2, d2))):
+        w[f"prepass_{name}_ms"] = cs.median_ms(prepass(lo, ld))
+        w[f"prepass_{name}_graph_ms"] = (cs.graph_ms(prepass(lo, ld))
+                                         if kernel_prepass else None)
+    fn_w, (ow, dw) = tracer.make_frame_fn(
+        scene, cam, tracer.RTConfig(engine="pallas_worklist", **kw))
+    w["frame_ms"] = cs.median_ms(lambda: fn_w(ow, dw), reps=5, warmup=1)
+    out["worklist"] = w
+
+    flat = cuda_rt.pack_records(*tri)
+    os_, ds_, _ = cs.sample_launch("bounce1", launches[2])
+
+    def flat_bounce():
+        return cuda_rt.closest_hit_pallas(os_, ds_, flat)
+
+    out["flat"] = {
+        "primary_ms": cs.median_ms(
+            lambda: cuda_rt.closest_hit_pallas(o1, d1, flat), reps=5,
+            warmup=1),
+        "bounce1_sample_rays": int(os_.shape[0]),
+        "bounce1_sample_ms": cs.median_ms(flat_bounce),
+        "bounce1_sample_graph_ms": cs.graph_ms(flat_bounce)}
 
     if args.lane_switch:
         keep = cuda_rt.STREAM_LANE_SWITCH

@@ -268,9 +268,10 @@ def build_times(card) -> None:
                       "card": card}), flush=True)
 
 
-def profile_line(run, ours_substr, card) -> None:
+def profile_line(run, names, card) -> None:
     """One run under torch.profiler -> the ``profile`` JSON line; the device
-    kernels whose name holds ``ours_substr`` are summed apart."""
+    kernels whose name holds one of the strings ``names`` are summed
+    apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -295,7 +296,7 @@ def profile_line(run, ours_substr, card) -> None:
             rows.append((e.key, dev_us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    ours = sum(ms for k, ms, _ in rows if ours_substr in k)
+    ours = sum(ms for k, ms, _ in rows if any(s in k for s in names))
     print(json.dumps({"profile": {
         "device_time_seen": bool(rows), "frame_host_ms_under_profiler": wall,
         "device_busy_ms": busy, "device_busy_share": busy / wall,
@@ -397,7 +398,7 @@ def config3(args, card) -> int:
                       "scene": "config3", "size": n,
                       "plan": [(m["draw_index"], m["mode"], m["K"], m["P"])
                                for m in metas], "card": card}), flush=True)
-    profile_line(run, "bvh_walk_kernel", card)
+    profile_line(run, ("bvh_walk_kernel",), card)
 
     dirs = torch.stack([nx, ny, torch.ones_like(nx)], -1)
     eye = torch.zeros_like(dirs)
@@ -512,9 +513,11 @@ def main(argv) -> int:
                       "triangles": int(scene.faces.shape[0]),
                       "card": card}), flush=True)
 
-    profile_line(run, {"pallas": "clustered_kernel<",
-                       "pallas_bvh": "bvh_walk_kernel"}.get(
-                           engine, "closest_hit_blocks_kernel"), card)
+    profile_line(run, {"pallas": ("clustered_kernel<",),
+                       "pallas_bvh": ("bvh_walk_kernel",),
+                       "pallas_worklist": ("closest_hit_blocks_kernel",
+                                           "active_block_lists_kernel")}.get(
+                           engine, ("closest_hit_blocks_kernel",)), card)
     if args.engine:
         return 0
 

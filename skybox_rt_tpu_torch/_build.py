@@ -67,6 +67,8 @@ _SIGNATURES = {
     # lane_switch, prim t u v, the stream
     "skybox_rt_closest_hit_worklist": [_P] * 8 + [_I, _I, _I, _F, _I, _I]
                                       + [_P] * 5,
+    # o d tmax aabb, NB R front_to_back, lists counts, the stream
+    "skybox_rt_active_block_lists": [_P] * 4 + [_I] * 3 + [_P] * 3,
     # edges z tile_pids origins out, T M tile_logsize depth_test, the stream
     "skybox_diff_visibility_hard": [_P] * 5 + [_I] * 4 + [_P],
     # idx val scratch out, N R C S L max_long, the scratch's words, the

@@ -57,8 +57,34 @@
 //     768) and read from global memory otherwise; threads of a warp with
 //     one octant read the same table entries (a broadcast); records are
 //     read as three float4 through the read-only cache.
-//   * flat: every thread of a block tests the same record at each step, so a
-//     block stages records through shared memory 256 at a time.
+//   * flat: a thread a ray; every thread of a block tests the same record
+//     at each step, so a block stages records through shared memory 256 at
+//     a time.  A test is issue-bound (53 flop and an IEEE reciprocal, no
+//     FMA), so the kernel cuts the work whose outcome is already fixed and
+//     keeps every operation that decides a result bit for bit mt_record's:
+//       - when every ray of the block has the same origin, bit for bit
+//         (__syncthreads_and; the camera's primary rays), tv = o - v0,
+//         qv = tv x e1 and t_num = e2 . qv depend on the record alone: the
+//         staging threads compute them once a record, with mt_record's
+//         intrinsics in its order, and stage them beside e1 and e2 (a block
+//         whose rays differ in origin, bounce rays, takes the general path,
+//         which computes them a test);
+//       - |det| <= MT_EPS cannot hit: the test stops after det;
+//       - t = RN(t_num * RN(1 / det)).  For finite |det| > MT_EPS, 1 / det
+//         lies within (2.9e-39, 1e9) in magnitude, so RN(1 / det) is
+//         finite, nonzero (float32's subnormals go down to 1.4e-45, and
+//         nothing is flushed) and of det's sign; the product of t_num with
+//         it has the sign of t_num * det, and rounding keeps a sign (a
+//         negative product rounds to a negative float or to -0); an
+//         infinite det gives t = +-0 or NaN.  So when t_num is 0, NaN, or of
+//         the sign opposite to det's, t <= 0 or t is NaN, and t > t_min
+//         fails whenever t_min >= 0: the test stops before the reciprocal.
+//         With t_min < 0 this cut is off;
+//       - u is mt_record's u; u >= 0 failing decides the test, so v and t
+//         are not computed then.  (No sign cut on u's numerator: a negative
+//         product can round to -0, which passes u >= 0.)
+//     Two rays a thread, each staged record read once for both, was
+//     measured and lost (PERF.md): too few blocks on short launches.
 
 #include "rt_common.cuh"
 
@@ -184,6 +210,34 @@ clustered_kernel(const float* __restrict__ o,
     }
 }
 
+// Whether a test whose |det| > MT_EPS can still hit, from the signs of
+// t_num and det (the design note's t-sign cut; `cut` is t_min >= 0).
+__device__ __forceinline__ bool t_may_pass(float t_num, float det, bool cut) {
+    return !cut || (t_num > 0.0f && det > 0.0f)
+        || (t_num < 0.0f && det < 0.0f);
+}
+
+// The rest of a flat test once det (|det| > MT_EPS) and t_num are known:
+// mt_record's reciprocal, u, v and t, u's test first; a hit with t below the
+// ray's best (strict: the lowest prim wins equal t) becomes its best.
+__device__ __forceinline__ void flat_finish(
+        float det, float t_num, float pvx, float pvy, float pvz, float tvx,
+        float tvy, float tvz, float qvx, float qvy, float qvz,
+        const Ray& ray, float t_min, int prim, float& best_t, int& best_p,
+        float& best_u, float& best_v) {
+    float inv_det = __fdiv_rn(1.0f, det);
+    float u = __fmul_rn(dot3(tvx, pvx, tvy, pvy, tvz, pvz), inv_det);
+    if (!(u >= 0.0f)) return;
+    float v = __fmul_rn(dot3(ray.dx, qvx, ray.dy, qvy, ray.dz, qvz), inv_det);
+    float t = __fmul_rn(t_num, inv_det);
+    if (v >= 0.0f && __fadd_rn(u, v) <= 1.0f && t > t_min && t < best_t) {
+        best_t = t;
+        best_p = prim;
+        best_u = u;
+        best_v = v;
+    }
+}
+
 __global__ void __launch_bounds__(THREADS)
 closest_hit_flat_kernel(const float* __restrict__ o,
                         const float* __restrict__ d,
@@ -192,7 +246,9 @@ closest_hit_flat_kernel(const float* __restrict__ o,
                         int P, float t_min, int R,
                         int* __restrict__ out_prim, float* __restrict__ out_t,
                         float* __restrict__ out_u, float* __restrict__ out_v) {
-    __shared__ float4 chunk[3 * FLAT_CHUNK];
+    // general path: a record's three float4 (v0, e1, e2); shared origin:
+    // (e1, t_num), (e2, -), (tv, qv.x), (qv.y, qv.z, -, -)
+    __shared__ float4 chunk[4 * FLAT_CHUNK];
     int r = blockIdx.x * blockDim.x + threadIdx.x;
     bool active = r < R;
     // a thread past the end helps to stage and writes nothing
@@ -201,22 +257,73 @@ closest_hit_flat_kernel(const float* __restrict__ o,
     float best_t = tmax ? tmax[rr] : CUDART_INF_F;
     float best_u = 0.0f, best_v = 0.0f;
     int best_p = -1;
+    bool cut = !(t_min < 0.0f);
+    // every ray of the block from one origin, compared as bits (-0.0f and
+    // 0.0f give tv of other signs)
+    const float* o0 = o + 3 * (size_t)blockIdx.x * blockDim.x;
+    bool shared = __syncthreads_and(
+        __float_as_uint(ray.ox) == __float_as_uint(__ldg(o0))
+        && __float_as_uint(ray.oy) == __float_as_uint(__ldg(o0 + 1))
+        && __float_as_uint(ray.oz) == __float_as_uint(__ldg(o0 + 2)));
     for (int base = 0; base < P; base += FLAT_CHUNK) {
         int n = min(FLAT_CHUNK, P - base);
         __syncthreads();            // the previous chunk has been read
-        for (int i = threadIdx.x; i < 3 * n; i += blockDim.x)
-            chunk[i] = __ldg(tri + 3 * (size_t)base + i);
+        if (shared) {
+            for (int i = threadIdx.x; i < n; i += blockDim.x) {
+                const float4* rec = tri + 3 * (size_t)(base + i);
+                float4 a = __ldg(rec), b = __ldg(rec + 1), c = __ldg(rec + 2);
+                // v0 = a.xyz, e1 = (a.w, b.x, b.y), e2 = (b.z, b.w, c.x)
+                float tvx = __fsub_rn(ray.ox, a.x);
+                float tvy = __fsub_rn(ray.oy, a.y);
+                float tvz = __fsub_rn(ray.oz, a.z);
+                float qvx = det2(tvy, b.y, tvz, b.x);
+                float qvy = det2(tvz, a.w, tvx, b.y);
+                float qvz = det2(tvx, b.x, tvy, a.w);
+                float t_num = dot3(b.z, qvx, b.w, qvy, c.x, qvz);
+                chunk[4 * i] = make_float4(a.w, b.x, b.y, t_num);
+                chunk[4 * i + 1] = make_float4(b.z, b.w, c.x, 0.0f);
+                chunk[4 * i + 2] = make_float4(tvx, tvy, tvz, qvx);
+                chunk[4 * i + 3] = make_float4(qvy, qvz, 0.0f, 0.0f);
+            }
+        } else {
+            for (int i = threadIdx.x; i < 3 * n; i += blockDim.x)
+                chunk[i] = __ldg(tri + 3 * (size_t)base + i);
+        }
         __syncthreads();
-        for (int j = 0; j < n; ++j) {
-            float t, u, v;
-            bool hit = mt_record(chunk[3 * j], chunk[3 * j + 1],
-                                 chunk[3 * j + 2], ray, t_min, t, u, v);
-            // strict <, ascending prim id: the lowest id wins equal t
-            if (hit && t < best_t) {
-                best_t = t;
-                best_p = base + j;
-                best_u = u;
-                best_v = v;
+        if (shared) {
+            for (int j = 0; j < n; ++j) {
+                float4 e1 = chunk[4 * j], e2 = chunk[4 * j + 1];
+                float pvx = det2(ray.dy, e2.z, ray.dz, e2.y);
+                float pvy = det2(ray.dz, e2.x, ray.dx, e2.z);
+                float pvz = det2(ray.dx, e2.y, ray.dy, e2.x);
+                float det = dot3(e1.x, pvx, e1.y, pvy, e1.z, pvz);
+                if (!(fabsf(det) > MT_EPS) || !t_may_pass(e1.w, det, cut))
+                    continue;
+                float4 tq = chunk[4 * j + 2], q = chunk[4 * j + 3];
+                flat_finish(det, e1.w, pvx, pvy, pvz, tq.x, tq.y, tq.z, tq.w,
+                            q.x, q.y, ray, t_min, base + j, best_t, best_p,
+                            best_u, best_v);
+            }
+        } else {
+            for (int j = 0; j < n; ++j) {
+                float4 a = chunk[3 * j], b = chunk[3 * j + 1],
+                       c = chunk[3 * j + 2];
+                float pvx = det2(ray.dy, c.x, ray.dz, b.w);
+                float pvy = det2(ray.dz, b.z, ray.dx, c.x);
+                float pvz = det2(ray.dx, b.w, ray.dy, b.z);
+                float det = dot3(a.w, pvx, b.x, pvy, b.y, pvz);
+                if (!(fabsf(det) > MT_EPS)) continue;
+                float tvx = __fsub_rn(ray.ox, a.x);
+                float tvy = __fsub_rn(ray.oy, a.y);
+                float tvz = __fsub_rn(ray.oz, a.z);
+                float qvx = det2(tvy, b.y, tvz, b.x);
+                float qvy = det2(tvz, a.w, tvx, b.y);
+                float qvz = det2(tvx, b.x, tvy, a.w);
+                float t_num = dot3(b.z, qvx, b.w, qvy, c.x, qvz);
+                if (!t_may_pass(t_num, det, cut)) continue;
+                flat_finish(det, t_num, pvx, pvy, pvz, tvx, tvy, tvz, qvx,
+                            qvy, qvz, ray, t_min, base + j, best_t, best_p,
+                            best_u, best_v);
             }
         }
     }

@@ -42,21 +42,32 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
     return ray;
 }
 
-// Slab test of the box [lo, hi]: enter when tn <= tf (<=, not <: a box the
-// ray meets at exactly far must stay reachable).
-__device__ __forceinline__ bool slab_box(float lox, float loy, float loz,
-                                         float hix, float hiy, float hiz,
-                                         const Ray& ray, float far) {
+// The entry and exit distances (tn, tf) of the slab test of the box
+// [lo, hi] with the far clip `far`.  tn is a max with 0.0f, and fmaxf drops
+// a NaN, so tn is never NaN and never below zero (it may be -0.0f).
+__device__ __forceinline__ void slab_range(float lox, float loy, float loz,
+                                           float hix, float hiy, float hiz,
+                                           const Ray& ray, float far,
+                                           float& tn, float& tf) {
     float t0x = __fmul_rn(__fsub_rn(lox, ray.ox), ray.ix);
     float t1x = __fmul_rn(__fsub_rn(hix, ray.ox), ray.ix);
     float t0y = __fmul_rn(__fsub_rn(loy, ray.oy), ray.iy);
     float t1y = __fmul_rn(__fsub_rn(hiy, ray.oy), ray.iy);
     float t0z = __fmul_rn(__fsub_rn(loz, ray.oz), ray.iz);
     float t1z = __fmul_rn(__fsub_rn(hiz, ray.oz), ray.iz);
-    float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                     fmaxf(fminf(t0z, t1z), 0.0f));
-    float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                     fminf(fmaxf(t0z, t1z), far));
+    tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+               fmaxf(fminf(t0z, t1z), 0.0f));
+    tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+               fminf(fmaxf(t0z, t1z), far));
+}
+
+// Slab test of the box [lo, hi]: enter when tn <= tf (<=, not <: a box the
+// ray meets at exactly far must stay reachable).
+__device__ __forceinline__ bool slab_box(float lox, float loy, float loz,
+                                         float hix, float hiy, float hiz,
+                                         const Ray& ray, float far) {
+    float tn, tf;
+    slab_range(lox, loy, loz, hix, hiy, hiz, ray, far, tn, tf);
     return tn <= tf;
 }
 

@@ -1,8 +1,8 @@
 """Ray queries: the CUDA kernels and their plain torch versions.
 
 Counterpart of skybox_rt_tpu.ops.pallas_rt.  Eight kernels replace Pallas TPU
-kernels of that module; each source says how a ray walks its structure and
-what bounds it:
+kernels of that module, and a ninth the worklist query's prepass; each source
+says how a ray walks its structure and what bounds it:
 
   ===========================  ==========================  ====================
   wrapper                      replaces (pallas_rt)        source
@@ -15,6 +15,7 @@ what bounds it:
   :func:`closest_hit_pallas`   _make_kernel                csrc/rt_clustered.cu
   :func:`closest_hit_streamed` _make_streamed_kernel       csrc/rt_streamed.cu
   :func:`closest_hit_worklist` _make_worklist_kernel       csrc/rt_streamed.cu
+  :func:`active_block_lists`   _active_block_lists (XLA)   csrc/rt_streamed.cu
   ===========================  ==========================  ====================
 
 (:func:`any_hit_pallas` wraps :func:`closest_hit_pallas`, as in the JAX
@@ -99,13 +100,20 @@ STREAM_MAX_TRI_BLOCK = 256
 #: (csrc/rt_streamed.cu); read at every launch, and by the plain versions'
 #: lane counts
 STREAM_LANE_SWITCH = 16
-#: most (ray, block) pairs one chunk of the worklist's prepass may hold
+#: rays of one thread block of the flat kernel, a ray a thread
+#: (csrc/rt_clustered.cu THREADS): the unit whose rays may share their origin
+FLAT_THREADS = 128
+#: most (ray, block) pairs one chunk of the worklist's plain prepass may hold
 PREPASS_PAIRS = 1 << 24
+#: most blocks the prepass kernel takes: a tile's keys and list, 8 bytes a
+#: block, in one thread block's 227 KB of shared memory
+#: (csrc/rt_streamed.cu PREPASS_MAX_BLOCKS)
+PREPASS_MAX_BLOCKS = 227 * 1024 // 8
 
 #: Kernel launches since the last reset, keyed by kernel (closest_hit_bvh,
 #: any_hit_bvh, closest_hit_bvh_after, closest_hit_clustered,
 #: any_hit_clustered, closest_hit_flat, closest_hit_streamed,
-#: closest_hit_worklist; a kernel not launched reads 0): a run reads them to show that its main
+#: closest_hit_worklist, active_block_lists; a kernel not launched reads 0): a run reads them to show that its main
 #: path went through the kernels.  Only :func:`_launch` adds to them.
 launch_counts: collections.Counter = collections.Counter()
 
@@ -740,16 +748,17 @@ def closest_hit_streamed_reference(orig, direction, stream, t_max=None,
     return _closest_result(*best, _stream_prim(stream))
 
 
-def active_block_lists(orig, direction, stream, t_max=None,
-                       front_to_back: bool = True):
-    """The prepass of :func:`closest_hit_worklist`, plain torch on any
-    device (pallas_rt._active_block_lists): for every tile of
+def active_block_lists_reference(orig, direction, stream, t_max=None,
+                                 front_to_back: bool = True):
+    """Plain torch prepass of :func:`closest_hit_worklist`, on any device:
+    what :func:`active_block_lists` returns (pallas_rt._active_block_lists).
+    For every tile of
     ``STREAM_RAY_TILE`` consecutive rays the blocks that some ray of the tile
     enters by the exact slab test against its fixed t_max, compacted to the
     front of the row, near to far by the tile's least entry distance
     (``front_to_back``; equal distances keep ascending id) or in ascending
     block id.  Returns (lists (G, NB) int32, counts (G,) int32); a row's
-    entries past its count are the inactive blocks and are never read."""
+    entries past its count are never read."""
     R, dev = orig.shape[0], orig.device
     T, NB = STREAM_RAY_TILE, stream["num_blocks"]
     G = -(-R // T)
@@ -943,6 +952,97 @@ def closest_hit_pallas_reference(orig, direction, tri, t_max=None,
         best_u[w] = u[found].gather(1, jf)[:, 0]
         best_v[w] = v[found].gather(1, jf)[:, 0]
     return best_p, best_t, best_u, best_v
+
+
+def flat_test_terms(tri, o, d):
+    """The flat kernel's arithmetic (csrc/rt_clustered.cu) for rays against
+    records tri (n, 12), in plain torch: a dict of (r, n) tensors det,
+    t_num, u, v, t, each with mt_record's operations in its order, where the
+    kernel's cuts read them.  d is (r, 3); o is (r, 3), or (3,): one origin
+    for every ray, whose terms tv = o - v0, qv = tv x e1 and t_num = e2 . qv
+    are computed once a record, as a thread block whose rays share their
+    origin stages them."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
+        tri[None, :, k] for k in range(9))
+    dx, dy, dz = (d[:, k:k + 1] for k in range(3))
+    ox, oy, oz = (o[k] for k in range(3)) if o.ndim == 1 else (
+        o[:, k:k + 1] for k in range(3))
+    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    t_num = e2x * qvx + e2y * qvy + e2z * qvz
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    valid = det.abs() > intersect.EPS
+    one = torch.ones((), dtype=det.dtype, device=det.device)
+    inv_det = torch.where(valid, 1.0 / torch.where(valid, det, one),
+                          torch.zeros_like(one))
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t_num = t_num.expand_as(det)
+    return {"det": det, "t_num": t_num, "u": u, "v": v, "t": t_num * inv_det}
+
+
+def flat_t_may_pass(det, t_num, t_min: float = T_MIN):
+    """The flat kernel's t-sign cut: False where a test with |det| >
+    MT_EPS cannot pass t > t_min because t_num is 0, NaN or of the sign
+    opposite to det's (csrc/rt_clustered.cu proves it); True everywhere when
+    t_min < 0, where the kernel leaves the cut out."""
+    if t_min < 0:
+        return torch.ones_like(det, dtype=torch.bool)
+    return ((t_num > 0) & (det > 0)) | ((t_num < 0) & (det < 0))
+
+
+def _flat_shared_blocks(orig):
+    """(blocks,) bool: the thread blocks of the flat kernel's launch over
+    rays orig (R, 3), ``FLAT_THREADS`` consecutive rays each, whose rays
+    share one origin bit for bit."""
+    R, n = orig.shape[0], FLAT_THREADS
+    bits = orig.contiguous().view(torch.int32)
+    first = bits[torch.arange(R, device=orig.device) // n * n]
+    differs = (bits != first).any(dim=1)
+    differs = torch.cat([differs, differs.new_zeros((-R) % n)])
+    return ~differs.view(-1, n).any(dim=1)
+
+
+def flat_shared_origin_blocks(orig):
+    """(blocks, blocks whose rays share their origin bit for bit) of the
+    flat kernel's launch over rays orig (R, 3): thread blocks of
+    ``FLAT_THREADS`` consecutive rays; a shared one stages tv, qv and t_num
+    once a record."""
+    shared = _flat_shared_blocks(orig)
+    return int(shared.numel()), int(shared.sum())
+
+
+def flat_work_counts(orig, direction, tri, t_min: float = T_MIN):
+    """The flat kernel's work on rays (R, 3) against records tri (P, 12),
+    counted by the plain arithmetic (:func:`flat_test_terms`): ``pairs``;
+    ``det_pass``, the tests that go on past det (|det| > MT_EPS), and
+    ``det_pass_general`` of them those in blocks that compute tv, qv and
+    t_num a test; ``t_pass``, those the t-sign cut keeps (the reciprocal and
+    u); ``u_pass``, those of them with u >= 0 (v and t); and ``blocks`` /
+    ``shared_blocks`` of :func:`flat_shared_origin_blocks`."""
+    P = tri.shape[0]
+    shared = _flat_shared_blocks(orig)[
+        torch.arange(orig.shape[0], device=orig.device) // FLAT_THREADS]
+    keys = ("pairs", "det_pass", "det_pass_general", "t_pass", "u_pass")
+    out = dict.fromkeys(keys, 0)
+    for idx in _idx_chunks(torch.arange(orig.shape[0], device=orig.device),
+                           P):
+        terms = flat_test_terms(tri, orig[idx], direction[idx])
+        det_pass = terms["det"].abs() > intersect.EPS
+        t_pass = det_pass & flat_t_may_pass(terms["det"], terms["t_num"],
+                                            t_min)
+        out["pairs"] += idx.numel() * P
+        out["det_pass"] += int(det_pass.sum())
+        out["det_pass_general"] += int(det_pass[~shared[idx]].sum())
+        out["t_pass"] += int(t_pass.sum())
+        out["u_pass"] += int((t_pass & (terms["u"] >= 0)).sum())
+    out["blocks"], out["shared_blocks"] = flat_shared_origin_blocks(orig)
+    return out
 
 
 def _per_ray_tmax(t_max, R, dev):
@@ -1284,11 +1384,48 @@ def closest_hit_streamed(orig, direction, stream, t_max=None,
     return prim, t, u, v
 
 
+def active_block_lists(orig, direction, stream, t_max=None,
+                       front_to_back: bool = True):
+    """The prepass of :func:`closest_hit_worklist`: for every tile of
+    ``STREAM_RAY_TILE`` consecutive rays (R, 3) float32 the blocks of
+    ``stream`` that some ray of the tile enters by the exact slab test
+    against its fixed t_max (None: +inf, or (R,) float32), compacted to the
+    front of the row, near to far by the tile's least entry distance
+    (``front_to_back``; equal distances keep ascending id) or in ascending
+    block id; the rest of the row in ascending id.  Returns (lists (G, NB)
+    int32, counts (G,) int32), element for element those of
+    :func:`active_block_lists_reference`, which CPU tensors run.  The kernel
+    takes at most ``PREPASS_MAX_BLOCKS`` blocks."""
+    _check_rays(orig, direction)
+    R, dev = orig.shape[0], orig.device
+    if t_max is not None:
+        t_max = _per_ray_tmax(t_max, R, dev)
+    if dev.type == "cpu":
+        return active_block_lists_reference(orig, direction, stream, t_max,
+                                            front_to_back)
+    _check_stream(dev, stream)
+    NB = stream["num_blocks"]
+    if NB > PREPASS_MAX_BLOCKS:
+        raise ValueError(f"the prepass kernel takes at most "
+                         f"{PREPASS_MAX_BLOCKS} blocks (a tile's keys and "
+                         f"list in one block's shared memory), got {NB}: "
+                         f"pack the scene with a larger tri_block")
+    G = -(-R // STREAM_RAY_TILE)
+    o, d = orig.contiguous(), direction.contiguous()
+    lists = torch.empty((G, NB), dtype=torch.int32, device=dev)
+    counts = torch.empty((G,), dtype=torch.int32, device=dev)
+    _launch("skybox_rt_active_block_lists", dev,
+            _ptr(o), _ptr(d), _ptr(t_max), _ptr(stream["aabb"]), NB, R,
+            int(front_to_back), _ptr(lists), _ptr(counts))
+    return lists, counts
+
+
 def closest_hit_worklist(orig, direction, stream, t_max=None,
                          t_min: float = T_MIN, front_to_back: bool = True,
                          lists=None):
     """Closest hit of rays (R, 3) float32 over per-tile lists of active
-    blocks: the prepass :func:`active_block_lists` (plain torch) finds, for
+    blocks: the prepass :func:`active_block_lists` (a kernel of its own)
+    finds, for
     every tile of ``STREAM_RAY_TILE`` rays, the blocks that some ray of it
     enters, near to far (``front_to_back``) or in ascending id; the kernel
     walks only that list and enters a block where a ray passes its AABB
