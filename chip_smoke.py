@@ -3,7 +3,8 @@ exact-int draw3d raster frame, the ray-traced frame of the large scene, the
 ray-traced frame of the small scene, the training step of the differentiable
 render, the ray-traced CGLTrace frame (config 3), with the two comparison
 engines of the ray tracer beside it, and the apps with the blocked matrix
-product.  Every raster phase bins its draws with the native C++ engine
+product; then the stages of the port's benchmark (bench_torch.py) and its
+command line.  Every raster phase bins its draws with the native C++ engine
 (geom.native, built with g++ in phase 2).
 
     python3 chip_smoke.py
@@ -252,7 +253,28 @@ exits non-zero, and only a run where every phase passed prints the final
                blackscholes on 4,000,000 options; host milliseconds a draw
                of the native and the numpy binning engines (median of 5) on
                synth_draw3d at 256x256 and 1024x1024
-  29. total  — the script's seconds (every phase line carries ``at_s``, the
+  29. bench_stages — every stage function of bench_torch.py once, in this
+               process, on the card, at its full size with one repeat: every
+               number it returns finite and positive (its device busy time
+               too: the profiler saw the card's kernels), its own checks
+               passed (the frame loop's sentinel never rendered and its
+               frame equals compile_frame's bit for bit, no K-slot overflow
+               in the config-3 frames), and each stage's kernels launched
+               (the counts set to 0 after the stage's set-up and read after
+               its runs: #1 on the raster stages, exactly draws x frames run;
+               #4 and #5 on the hard training steps, exactly 1 + 5 a step
+               (bench_torch.expected_launches); #5 on the soft and alpha
+               ones, #2 and #3 on the north-star frame, #2 and #6 on the
+               config-3 frame)
+  30. cli_on_card — the command line on its default device, the card:
+               ``render -t synth_draw3d -w 256 -H 256 --mode pallas --perf
+               -o``, whose PNG, decoded with zlib (no PIL), equals the
+               committed JAX golden (data/synth_draw3d_256.npz); ``info``
+               (platform gpu, the card's name); ``rt -w 256 -H 256`` with the
+               engines pallas (#7, #8) and pallas_worklist (#11 and its
+               prepass), the two PNGs equal; ``fit -w 64 --steps 20`` (#5),
+               its last loss below its first
+  31. total  — the script's seconds (every phase line carries ``at_s``, the
                seconds since the script started)
 
 The ``kernels`` line gives each kernel's time beside its bound, both terms
@@ -303,6 +325,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2834,6 +2857,150 @@ def apps_phases(dev, card) -> list:
         "shape": f"{n3} x {n3} x {n3}"}]
 
 
+#: per stage of bench_torch.py, the kernels (its ``launches`` keys) that the
+#: stage must have launched on the card
+BENCH_KERNELS = {
+    "headline_device": ("raster_visibility",),
+    "headline": ("raster_visibility",),
+    "draw1024": ("raster_visibility",),
+    "fwd_bwd": ("diff_visibility", "diff_accumulate"),
+    "fwd_bwd_1024": ("diff_visibility", "diff_accumulate"),
+    "fwd_bwd_soft": ("diff_accumulate",),
+    "fwd_bwd_alpha": ("diff_accumulate",),
+    "rt_northstar": ("rt_closest_hit_bvh", "rt_any_hit_bvh"),
+    "rt_config3": ("rt_closest_hit_bvh", "rt_closest_hit_bvh_after"),
+}
+
+
+def _numbers(value, path=""):
+    """(path, number) of every number in a stage's JSON, nested ones too."""
+    if isinstance(value, bool) or value is None or isinstance(value, str):
+        return []
+    if isinstance(value, (int, float)):
+        return [(path, value)]
+    if isinstance(value, dict):
+        return [x for k, v in value.items() for x in _numbers(v, f"{path}.{k}")]
+    return [x for i, v in enumerate(value) for x in _numbers(v, f"{path}[{i}]")]
+
+
+def bench_phase(dev, card) -> None:
+    """Phase 29: every stage function of bench_torch.py once, in this
+    process, on the card, at full size with the fewest repeats."""
+    import bench_torch
+
+    for name in ("REPS", "DEVICE_REPS", "DRAW1024_REPS", "FWD_BWD_REPS",
+                 "RT_REPS", "CONFIG3_REPS"):
+        setattr(bench_torch, name, 1)
+    want = bench_torch.expected_launches(dev)
+    stages, seconds = {}, {}
+    for name, (fn, _) in bench_torch.STAGES.items():
+        t0 = time.perf_counter()
+        stages[name] = out = fn(dev)
+        seconds[name] = time.perf_counter() - t0
+        for key, x in _numbers(out):
+            # roofline percentages, rates and times are all positive; a
+            # device busy time of 0 would mean the profiler saw no kernel
+            if not (math.isfinite(x) and x > 0):
+                raise AssertionError(f"bench stage {name}: {key} = {x}")
+        if any(k.endswith(("_device_busy_ms", "_device_kernels"))
+               and v is None for k, v in out.items()):
+            raise AssertionError(f"bench stage {name}: no device busy time")
+        launched = next((v for k, v in out.items()
+                         if k.endswith("_launches")), {})
+        for kernel in BENCH_KERNELS.get(name, ()):
+            if not launched.get(kernel):
+                raise AssertionError(f"bench stage {name} launched no "
+                                     f"{kernel}: {launched}")
+        for kernel, n in want.get(name, {}).items():
+            if launched.get(kernel) != n:
+                raise AssertionError(f"bench stage {name}: {kernel} launched "
+                                     f"{launched.get(kernel)} times, not {n}")
+    if not stages["headline_device"]["loop_frame_equal_to_compile_frame"]:
+        raise AssertionError("the frame loop's frame != compile_frame's")
+    phase("bench_stages", card=card, seconds=seconds,
+          want_launches=want, **stages)
+
+
+def cli_phase(dev, card, golden) -> None:
+    """Phase 30: the command line on the card (its default device)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from skybox_rt_tpu_torch import cli
+    from skybox_rt_tpu_torch.diff import cuda_texgrad
+    from skybox_rt_tpu_torch.ops import cuda_raster, cuda_rt
+    from skybox_rt_tpu_torch.utils import image
+
+    def run(*argv):
+        cuda_raster.reset_launch_count()
+        cuda_rt.reset_launch_counts()
+        cuda_texgrad.reset_launch_count()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(list(argv))
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"cli {argv}: exit {rc}\n{out.getvalue()}")
+        return out.getvalue().splitlines(), time.perf_counter() - t0
+
+    got = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "render.png")
+        lines, sec = run("render", "-t", "synth_draw3d", "-w", str(SIZE),
+                         "-H", str(SIZE), "--mode", "pallas", "--perf",
+                         "-o", png)
+        launches = cuda_raster.launch_count
+        decoded = image.read_png_rgba(png)       # zlib, no PIL
+        if not np.array_equal(decoded, image.framebuffer_to_rgba(golden)):
+            raise AssertionError("cli render's PNG != the JAX golden")
+        row = next(ln for ln in lines if ln.startswith("frame[pallas]"))
+        if launches == 0 or not any(ln.startswith("PERF: ") for ln in lines):
+            raise AssertionError(f"cli render: {launches} launches, "
+                                 f"{lines}")
+        got["render"] = {"seconds": sec, "lines": lines[:2],
+                         "roofline_row": row, "raster_visibility": launches,
+                         "png_equal_to_jax_golden": True}
+
+        lines, sec = run("info")
+        info = json.loads(lines[-1])
+        if info["platform"] != "gpu" or \
+                info["device_kind"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"cli info: {info}")
+        got["info"] = info
+
+        images = {}
+        for engine, kernels in (
+                ("pallas", ("closest_hit_clustered", "any_hit_clustered")),
+                ("pallas_worklist", ("closest_hit_worklist",
+                                     "active_block_lists"))):
+            out_png = os.path.join(tmp, f"rt_{engine}.png")
+            lines, sec = run("rt", "-w", str(SIZE), "-H", str(SIZE),
+                             "--engine", engine, "-o", out_png)
+            counts = dict(cuda_rt.launch_counts)
+            images[engine] = image.read_png_rgba(out_png)
+            if images[engine].shape != (SIZE, SIZE, 4) or \
+                    not all(counts.get(k) for k in kernels):
+                raise AssertionError(f"cli rt {engine}: {counts}")
+            got[f"rt_{engine}"] = {"seconds": sec, "line": lines[0],
+                                   "launches": counts}
+        if not np.array_equal(images["pallas"], images["pallas_worklist"]):
+            raise AssertionError("cli rt: the engines' images differ")
+
+        lines, sec = run("fit", "-w", "64", "--steps", "20", "-o",
+                         os.path.join(tmp, "fit"))
+        fit = json.loads(lines[-1])
+        if not (fit["loss_last"] < fit["loss_first"]) or fit["bad_steps"] \
+                or cuda_texgrad.launch_count == 0:
+            raise AssertionError(f"cli fit: {fit}, "
+                                 f"{cuda_texgrad.launch_count} launches")
+        got["fit"] = {"seconds": sec, "loss_first": fit["loss_first"],
+                      "loss_last": fit["loss_last"],
+                      "diff_accumulate": cuda_texgrad.launch_count}
+    phase("cli_on_card", card=card, **got)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -3058,6 +3225,8 @@ def main() -> int:
         "bounce1_sample"] = flat_bounce
     rt_entries = (rt_entries + config3_entries
                   + apps_phases(dev, card))
+    bench_phase(dev, card)
+    cli_phase(dev, card, golden)
 
     phase("total", seconds=time.perf_counter() - T0)
     print(card)

@@ -21,3 +21,9 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: the port's entry points run on the card by "
             "default; pass device=\"cpu\" to run on the CPU")
     return torch.device("cuda")
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (CPU work is done on return)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -19,6 +19,8 @@ import shutil
 
 import torch
 
+from ..utils import tracing
+
 _log = logging.getLogger(__name__)
 
 KEEP_CHECKPOINTS = 3
@@ -116,6 +118,7 @@ def fit(loss_fn, params, *args, steps: int = 100, lr: float = 1e-2,
                     p.copy_(state["params"][k])
             start_step = int(state["step"])
             _log.info("resumed from checkpoint step %d", start_step)
+            tracing.trace_log(1, f"resumed from checkpoint step {start_step}")
 
     def scaled_optimizer(scale):
         opt = make_optimizer(list(params.values()))
@@ -129,7 +132,8 @@ def fit(loss_fn, params, *args, steps: int = 100, lr: float = 1e-2,
     lr_scale = 1.0
     good = {k: p.detach().clone() for k, p in params.items()}
     for i in range(start_step, steps):
-        loss, grads = step(*args)
+        with tracing.stage("optim_step"):
+            loss, grads = step(*args)
         loss_val = float(loss)
         if not math.isfinite(loss_val) or not _all_finite(grads.values()):
             bad_steps += 1
@@ -139,6 +143,9 @@ def fit(loss_fn, params, *args, steps: int = 100, lr: float = 1e-2,
                     p.copy_(good[k])
             _log.info("step %d: non-finite loss/grads, rolled back "
                       "(lr_scale=%s)", i, lr_scale)
+            tracing.trace_log(
+                1, f"step {i}: non-finite loss/grads, rolled back "
+                   f"(lr_scale={lr_scale})")
             step = make_step(loss_fn, params, scaled_optimizer(lr_scale))
             continue
         with torch.no_grad():

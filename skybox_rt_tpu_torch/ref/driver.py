@@ -14,6 +14,10 @@ kernel for CUDA tensors and runs its plain version for CPU tensors.
 "pallas_interpret" (JAX: the Pallas interpreter) has no counterpart and is
 refused; the plain version runs with device="cpu".  Results leave as numpy
 uint32 (H, W) ARGB.
+
+:func:`compile_frame_loop` is the device-wall measurement protocol: N
+frames, each data-dependent on the one before through
+``FRAME_LOOP_SENTINEL``, timed at two loop lengths (bench_torch.py).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from ..core import state as state_mod
 from ..core.device import resolve_device
 from ..geom import binning, cgltrace
 from ..ops import deferred as deferred_mod
+from ..runtime import perf as perf_mod
 from ..texture import sampler as sampler_mod
 from ..texture.mipmap import generate_mipmaps
 from . import renderer
@@ -52,6 +57,20 @@ def _check_mode(mode: str) -> None:
 
 def log2ceil(x: int) -> int:
     return max(int(math.ceil(math.log2(x))), 0) if x > 1 else 0
+
+
+@dataclasses.dataclass
+class FrameStats:
+    drawcalls: int = 0
+    prims_binned: int = 0
+    tiles: int = 0
+    # analytic per-unit traffic (runtime.perf.drawcall_traffic, the
+    # raster/tex/om MPM-counter analog), summed over draws
+    traffic: dict = dataclasses.field(default_factory=dict)
+
+    def add_traffic(self, t: dict):
+        for k, v in t.items():
+            self.traffic[k] = self.traffic.get(k, 0) + v
 
 
 def make_texture_binding(trace: cgltrace.CGLTrace, drawcall, states,
@@ -121,13 +140,21 @@ def clear_framebuffers(width, height, tile_logsize, device):
 def render_trace(trace: cgltrace.CGLTrace, width: int, height: int,
                  tile_logsize: int = C.RASTER_TILE_LOGSIZE,
                  start_draw: int = 0, end_draw: int = 2**31,
-                 mode: str = "immediate", device=None) -> np.ndarray:
+                 stats: FrameStats | None = None,
+                 mode: str = "immediate", measure_traffic: bool = False,
+                 device=None) -> np.ndarray:
     """Render a full trace on ``device`` (None: the CUDA card, see
     core.device); returns the (H, W) uint32 ARGB framebuffer.
 
     mode: "immediate", "deferred" or "pallas" (the same path as "deferred":
     kernel #1 for CUDA tensors, its plain version for CPU tensors); see the
     module docstring.
+    stats: a FrameStats that gains each rendered draw's counts and its
+    runtime.perf.drawcall_traffic.  measure_traffic: with stats, run the
+    exact fragment-counting pass per draw against the live ds buffer
+    (ops.deferred.measure_drawcall_counts, which reads its counts back) so
+    stats.traffic carries MEASURED tex/OM traffic instead of the
+    coverage-area upper bound.
 
     Blended-draw slot counts are measured on the first render of a (trace,
     size) and cached on the trace object; later frames dispatch with the
@@ -151,6 +178,10 @@ def render_trace(trace: cgltrace.CGLTrace, width: int, height: int,
         if resolved is None:
             continue
         render_state, texels, binned = resolved
+        counts = None
+        if stats is not None and measure_traffic:
+            counts = deferred_mod.measure_drawcall_counts(render_state,
+                                                          binned, fbd)
         if deferred_mode:
             info = {}
             hint = ks.get(d)
@@ -161,13 +192,20 @@ def render_trace(trace: cgltrace.CGLTrace, width: int, height: int,
         else:
             fbc, fbd = renderer.render_drawcall(render_state, texels, binned,
                                                 fbc, fbd)
+        if stats is not None:
+            stats.drawcalls += 1
+            stats.prims_binned += binned.num_prims
+            stats.tiles += binned.num_tiles
+            stats.add_traffic(perf_mod.drawcall_traffic(
+                binned, render_state, counts=counts))
 
     out = fixed.to_numpy_u32(fbc[:height, :width])
     if deferred_mode and any(int(mc) > k for k, mc in pending):
-        # the trace changed under a cached K: measure again
+        # the trace changed under a cached K: measure again (the draws
+        # are counted once, as in the JAX package)
         trace._blend_k_cache.pop((width, height, tile_logsize), None)
         return render_trace(trace, width, height, tile_logsize, start_draw,
-                            end_draw, mode, device)
+                            end_draw, None, mode, measure_traffic, device)
     return out
 
 
@@ -199,19 +237,13 @@ def prepare_drawcalls(trace: cgltrace.CGLTrace, width: int, height: int,
     return draws
 
 
-def compile_frame(trace: cgltrace.CGLTrace, width: int, height: int,
-                  tile_logsize: int = C.RASTER_TILE_LOGSIZE,
-                  mode: str = "immediate", device=None):
-    """Prepare a whole frame once, for repeated rendering on ``device``
-    (None: the CUDA card).  mode: as in :func:`render_trace`, "immediate"
-    by default as in the JAX package.
-
-    Draws are binned once, their arrays uploaded once, and blended draws'
-    slot counts measured once with one deferred frame (exact: every call
-    starts from the same cleared buffers and inputs).  Returns
-    ``(frame, arrays)``; ``frame(arrays)`` renders all draws on the device
-    and returns the (H, W) int32 ARGB-pattern tensor, without syncing.
-    """
+def _frame_setup(trace, width, height, tile_logsize, mode, device):
+    """What compile_frame and compile_frame_loop share: the draws binned
+    once, their arrays uploaded once, and blended draws' slot counts
+    measured once with one deferred frame (exact: every call starts from
+    the same cleared buffers and inputs).  Returns (render, arrays,
+    cleared): render(arrays, fbc, fbd) -> (fbc, fbd) runs every draw on the
+    device, without syncing."""
     _check_mode(mode)
     device = resolve_device(device)
     draws = prepare_drawcalls(trace, width, height, tile_logsize, device)
@@ -232,8 +264,7 @@ def compile_frame(trace: cgltrace.CGLTrace, width: int, height: int,
     statics = [(rs, b.tile_logsize, k)
                for (rs, _, b), k in zip(draws, blend_ks)]
 
-    def frame(arrays):
-        fbc, fbd = cleared
+    def render(arrays, fbc, fbd):
         for (rs, tls, k), (texels, dev_arrays) in zip(statics, arrays):
             if mode in DEFERRED_MODES:
                 fbc, fbd, _ = deferred_mod.render_arrays(
@@ -241,6 +272,80 @@ def compile_frame(trace: cgltrace.CGLTrace, width: int, height: int,
             else:
                 fbc, fbd = renderer.render_arrays(rs, texels, dev_arrays,
                                                   fbc, fbd, tls)
+        return fbc, fbd
+
+    return render, arrays, cleared
+
+
+def compile_frame(trace: cgltrace.CGLTrace, width: int, height: int,
+                  tile_logsize: int = C.RASTER_TILE_LOGSIZE,
+                  mode: str = "immediate", device=None):
+    """Prepare a whole frame once, for repeated rendering on ``device``
+    (None: the CUDA card).  mode: as in :func:`render_trace`, "immediate"
+    by default as in the JAX package.
+
+    Draws are binned once, their arrays uploaded once, and blended draws'
+    slot counts measured once with one deferred frame (exact: every call
+    starts from the same cleared buffers and inputs).  Returns
+    ``(frame, arrays)``; ``frame(arrays)`` renders all draws on the device
+    and returns the (H, W) int32 ARGB-pattern tensor, without syncing.
+    """
+    render, arrays, cleared = _frame_setup(trace, width, height,
+                                           tile_logsize, mode, device)
+
+    def frame(arrays):
+        fbc, _ = render(arrays, *cleared)
         return fbc[:height, :width]
 
     return frame, arrays
+
+
+FRAME_LOOP_SENTINEL = np.uint32(0xDEADBEEF)
+
+
+def shift_arrays(dev_arrays: tuple, z: torch.Tensor) -> tuple:
+    """One draw's ``ops.deferred.device_arrays`` with the frame loop's carry
+    ``z`` added to its edges, attribs, zattr and tile_pids (the first four);
+    with z = 0 the draw renders as before, but it waits for z."""
+    return tuple(a + z for a in dev_arrays[:4]) + dev_arrays[4:]
+
+
+def compile_frame_loop(trace: cgltrace.CGLTrace, width: int, height: int,
+                       frames: int,
+                       tile_logsize: int = C.RASTER_TILE_LOGSIZE,
+                       mode: str = "deferred", device=None):
+    """An N-frame render loop whose frames cannot be skipped or merged —
+    the device-wall measurement protocol.
+
+    Frame n+1 data-depends on frame n: its two clear buffers are XORed,
+    and every draw's edges, attribs, zattr and tile_pids are added, with
+    z = the count of pixels of frame n equal to FRAME_LOOP_SENTINEL (frame
+    1 counts them in the cleared color buffer).  The scene never renders
+    that color (the caller checks the final frame), so z is 0 and every
+    frame equals compile_frame's, but each frame's launches wait for the
+    one before.  z stays a device tensor: the loop reads nothing back, and
+    syncs nowhere that compile_frame's frame does not.  Its launches above
+    ``frames`` x a frame: a compare and a sum, 2 XORs and 4 adds a draw,
+    each frame.  Timing two loop lengths and taking the difference
+    quotient cancels the launch and sync overhead of a call (the
+    reference's in-window elapsed-cycles protocol,
+    tests/regression/draw3d/main.cpp:349-378).  Setup is compile_frame's;
+    mode="pallas" (and "deferred") launch kernel #1 for CUDA tensors.
+
+    Returns (loop_fn, arrays): loop_fn(arrays) -> the final (H, W) int32
+    ARGB-pattern tensor, as compile_frame's frame returns it.
+    """
+    render, arrays, (clear_c, clear_d) = _frame_setup(
+        trace, width, height, tile_logsize, mode, device)
+    sentinel = fixed.s32(int(FRAME_LOOP_SENTINEL))
+
+    def loop(arrays):
+        fb = clear_c
+        for _ in range(frames):
+            z = (fb == sentinel).sum(dtype=torch.int32)
+            shifted = tuple((texels, shift_arrays(dev_arrays, z))
+                            for texels, dev_arrays in arrays)
+            fb, _ = render(shifted, clear_c ^ z, clear_d ^ z)
+        return fb[:height, :width]
+
+    return loop, arrays

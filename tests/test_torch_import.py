@@ -1,10 +1,10 @@
 """The port stands without JAX: importing every module of
-skybox_rt_tpu_torch, rendering a raster frame (binned by the native engine),
-a ray-traced frame (every engine) and the ray-traced CGLTrace frame, taking
-training steps of the differentiable render and running the apps on the CPU
-loads neither jax,
-optax, orbax nor skybox_rt_tpu, and chip_smoke.py refuses to run without a
-card."""
+skybox_rt_tpu_torch, rendering a raster frame (binned by the native engine)
+with its statistics, asking the command line for the device's caps,
+rendering a ray-traced frame (every engine) and the ray-traced CGLTrace
+frame, taking training steps of the differentiable render and running the
+apps on the CPU loads neither jax, optax, orbax nor skybox_rt_tpu, and
+chip_smoke.py refuses to run without a card."""
 import importlib.util
 import json
 import os
@@ -31,8 +31,12 @@ for m in mods:
 from skybox_rt_tpu_torch.geom import cgltrace
 from skybox_rt_tpu_torch.ref import driver
 trace = cgltrace.load_trace(cgltrace.trace_path("synth_draw3d"))
+stats = driver.FrameStats()
 fb = driver.render_trace(trace, 32, 32, start_draw=2, end_draw=3,
-                         mode="deferred", device="cpu")
+                         stats=stats, mode="deferred", measure_traffic=True,
+                         device="cpu")
+from skybox_rt_tpu_torch import cli
+cli.main(["info", "--device", "cpu"])
 from skybox_rt_tpu_torch.models import scenes
 from skybox_rt_tpu_torch.rt import tracer
 verts, faces = scenes.icosphere(subdiv=1)
@@ -79,6 +83,8 @@ loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "optax", "orbax",
                                        "skybox_rt_tpu"))
 print(json.dumps({"loaded": loaded, "shape": list(fb.shape),
+                  "stats_drawcalls": stats.drawcalls,
+                  "stats_fragments": stats.traffic["fragments"],
                   "dtype": str(fb.dtype), "rt_shape": list(img.shape),
                   "rt_hits": int((img[..., :3].sum(-1) > 0).sum()),
                   "rt_default_engine_diff": float((small - img).abs().max()),
@@ -116,18 +122,20 @@ _RENAMED = {"ops/pallas_rt.py": "ops/cuda_rt.py",
 #: module of the JAX package -> {public name the port does not carry:
 #: why}; a module that is absent from the port maps to its reason
 NOT_CARRIED = {
-    "__main__.py": _QUEUED, "cli.py": _QUEUED,
-    "runtime/__init__.py": _QUEUED, "runtime/device.py": _QUEUED,
-    "runtime/perf.py": _QUEUED, "utils/__init__.py": _QUEUED,
-    "utils/image.py": _QUEUED, "utils/tracing.py": _QUEUED,
-    "models/obj.py": _QUEUED, "parallel/__init__.py": _QUEUED,
+    "parallel/__init__.py": _QUEUED,
     "parallel/draw_shard.py": _QUEUED, "parallel/mesh.py": _QUEUED,
     "parallel/overlap.py": _QUEUED, "parallel/ray_shard.py": _QUEUED,
     "parallel/scaling.py": _QUEUED, "parallel/tile_shard.py": _QUEUED,
-    "ref/driver.py": {n: "the frame-loop benchmark, queued (ROADMAP.md "
-                         "section 1, module item 1)"
-                      for n in ("FRAME_LOOP_SENTINEL", "FrameStats",
-                                "compile_frame_loop")},
+    "cli.py": {"_cmd_scale": "the mesh scaling sweep waits for the port "
+                             "of parallel/ (ROADMAP.md section 1)"},
+    "runtime/perf.py": {
+        "V5E_PEAKS": "a TPU's peaks; the port's rooflines default to "
+                     "H100_PEAKS",
+        "cost_analysis": "reads XLA's cost model, which torch has not; the "
+                         "port's kernel bounds are the work counts that "
+                         "chip_smoke.py computes",
+        "roofline_of_fn": "cost_analysis + roofline: XLA's cost model, "
+                          "which torch has not"},
     "core/fixed.py": {
         "I32": _DTYPE_ALIASES, "U32": _DTYPE_ALIASES,
         "smul32_parts": "a TPU emulation of the 32x32 -> 64-bit product as "
@@ -179,9 +187,10 @@ NOT_CARRIED = {
 }
 
 
-def _public_names(path):
-    """The public names a module's source binds at its top level: defs,
-    classes and assignments (the JAX package is read, not imported)."""
+def _public_names(path, private=False):
+    """The public names (with ``private``: every name) a module's source
+    binds at its top level: defs, classes and assignments (the JAX package
+    is read, not imported)."""
     import ast
     with open(path) as f:
         tree = ast.parse(f.read())
@@ -194,7 +203,7 @@ def _public_names(path):
                        else [node.target])
             found |= {e.id for t in targets for e in ast.walk(t)
                       if isinstance(e, ast.Name)}
-    return {n for n in found if not n.startswith("_")}
+    return {n for n in found if private or not n.startswith("_")}
 
 
 def _jax_modules():
@@ -208,7 +217,8 @@ def _jax_modules():
 def test_public_names_carried_or_listed(module):
     """Every public name of every JAX module is in its port, or is listed
     in NOT_CARRIED with its reason; a listed name that the port gains must
-    leave the list."""
+    leave the list.  A listed private name is one the JAX module binds and
+    the port does not."""
     port = os.path.join(REPO, "skybox_rt_tpu_torch",
                         _RENAMED.get(module, module))
     listed = NOT_CARRIED.get(module, {})
@@ -216,9 +226,13 @@ def test_public_names_carried_or_listed(module):
         assert not os.path.exists(port), f"{module} is ported: unlist it"
         return
     assert os.path.exists(port), f"{module} has no port and is not listed"
-    missing = (_public_names(os.path.join(REPO, "skybox_rt_tpu", module))
-               - _public_names(port))
-    assert missing == set(listed), (sorted(missing), sorted(listed))
+    jax_path = os.path.join(REPO, "skybox_rt_tpu", module)
+    missing = _public_names(jax_path) - _public_names(port)
+    public = {n for n in listed if not n.startswith("_")}
+    assert missing == public, (sorted(missing), sorted(public))
+    hidden = set(listed) - public
+    assert hidden <= _public_names(jax_path, private=True) - _public_names(
+        port, private=True)
     assert all(listed.values())
 
 
@@ -248,13 +262,16 @@ def test_every_module_listed():
               "rt.raster_bridge", "rt.frame", "rt.diff", "apps.compute",
               "apps.cuda_sgemm", "apps.opencl", "apps.lbm", "apps.om_app",
               "apps.tex_app", "apps.raster_app", "texture.convert",
-              "texture.units", "geom.native", "geom.validate"):
+              "texture.units", "geom.native", "geom.validate",
+              "runtime.perf", "runtime.device", "utils.tracing",
+              "utils.image", "models.obj", "cli", "__main__"):
         assert f"skybox_rt_tpu_torch.{m}" in MODULES
 
 
 def test_no_jax_after_import_and_render(probe):
     assert probe["loaded"] == []
     assert probe["shape"] == [32, 32] and probe["dtype"] == "uint32"
+    assert probe["stats_drawcalls"] == 2 and probe["stats_fragments"] > 0
     assert probe["rt_shape"] == [16, 16, 4] and probe["rt_hits"] > 20
     # the default engine (the clustered pair) against the all-pairs oracle
     assert probe["rt_default_engine_diff"] <= 2e-5
