@@ -3,8 +3,9 @@ exact-int draw3d raster frame, the ray-traced frame of the large scene, the
 ray-traced frame of the small scene, the training step of the differentiable
 render, the ray-traced CGLTrace frame (config 3), with the two comparison
 engines of the ray tracer beside it, and the apps with the blocked matrix
-product; then the stages of the port's benchmark (bench_torch.py) and its
-command line.  Every raster phase bins its draws with the native C++ engine
+product; then the stages of the port's benchmark (bench_torch.py), its
+command line, and the sharded paths of parallel/ over a torch.distributed
+world.  Every raster phase bins its draws with the native C++ engine
 (geom.native, built with g++ in phase 2).
 
     python3 chip_smoke.py
@@ -274,7 +275,33 @@ exits non-zero, and only a run where every phase passed prints the final
                engines pallas (#7, #8) and pallas_worklist (#11 and its
                prepass), the two PNGs equal; ``fit -w 64 --steps 20`` (#5),
                its last loss below its first
-  31. total  — the script's seconds (every phase line carries ``at_s``, the
+  31. parallel — the sharded paths in a world of one rank over NCCL (formed
+               by parallel.mesh.make_mesh on an in-process store, destroyed
+               at the end of the phase), the counts set to 0 just before
+               each and read just after: render_trace_sharded at 256x256
+               bit-equal to the committed JAX golden and to compile_frame's
+               frame, #1 launched as often as phase 4's first frame (a fresh
+               trace: the blend retry included) and then once a draw, four
+               all-reduces a draw's render; make_train_step at 1024x1024
+               (grad_buckets 3), three SGD steps (lr 1e-7 on all four
+               parameters, from the scene with halved colors, toward its own
+               image; finite losses) against the port's
+               unsharded steps on the same parameters: loss rtol 1e-6,
+               params rtol 1e-5, #4 once and #5 five times a step, five
+               all-reduces a step (three buckets, the loss, max_writes);
+               render_sharded of the north-star scene (pallas_bvh: #2, #3,
+               3 + 3) and of the small scene (pallas: #7, #8, 3 + 3) at
+               1024x1024 within atol 1e-6 of make_frame_fn's frame, one
+               all-gather each, their blocks and clusters built once; the
+               sharded and unsharded times (CUDA events, in turns, their
+               medians and the median of their ratios), and the
+               host milliseconds of the set-up render_sharded repeats a
+               call (shading records, camera rays, tile order); the NCCL
+               version; scaling.measure() (a spawned world of each size up
+               to the card count); render_trace_sharded in a world of two
+               spawned ranks on the one card, gloo carrying the collectives
+               of CUDA tensors, equal to the golden
+  32. total  — the script's seconds (every phase line carries ``at_s``, the
                seconds since the script started)
 
 The ``kernels`` line gives each kernel's time beside its bound, both terms
@@ -287,6 +314,8 @@ primary shadow launch); ``launch_ms``, ``frame_ms`` and ``frame_bound_ms``
 cover the three launches of a frame; ``graph_ms`` and ``frame_graph_ms``
 time the BVH-block and clustered launches, and pass 1's 256x256 launch, as
 CUDA graph replays, without the host's work around the call.
+``sharded_launches`` (#1, #2, #3, #4, #5, #7, #8) are the launches of phase
+31's sharded run of the kernel's path.
 ``max_abs_err`` is the largest |kernel - plain| over every output of the
 comparison run (measured; a run that prints the line measured 0, since any
 difference raises), and the ray queries add
@@ -426,6 +455,33 @@ def median_ms(fn, reps=REPS, warmup=WARMUP) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def paired_ms(sharded, unsharded, reps=REPS, warmup=WARMUP) -> dict:
+    """The two functions in turns (sharded first on even reps, unsharded
+    first on odd ones), each call timed with CUDA events: their medians and
+    the median of the reps' ratios, so that the host's drift within the call
+    falls on both."""
+    for _ in range(warmup):
+        sharded()
+        unsharded()
+    times = {sharded: [], unsharded: []}
+    for i in range(reps):
+        for fn in (sharded, unsharded) if i % 2 == 0 else (unsharded,
+                                                           sharded):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[fn].append(start.elapsed_time(end))
+    a, b = np.array(times[sharded]), np.array(times[unsharded])
+    return {"sharded_ms": float(np.median(a)),
+            "unsharded_ms": float(np.median(b)),
+            "sharded_over_unsharded": float(np.median(a / b)),
+            "reps": reps, "in_turns": True}
 
 
 def graph_ms(fn, reps=REPS) -> float:
@@ -608,9 +664,9 @@ def frame_against_golden(what, img, want):
             "mean_rgb": [float(x) for x in img[..., :3].mean((0, 1))]}
 
 
-def rt_phases(dev, card) -> list:
+def rt_phases(dev, card) -> tuple:
     """Phases 7 to 10; returns the two RT kernels' entries of the kernels
-    line."""
+    line and the full-width scene with its frame."""
     from skybox_rt_tpu_torch.geom import cgltrace
     from skybox_rt_tpu_torch.models import scenes
     from skybox_rt_tpu_torch.ops import cuda_rt
@@ -869,7 +925,9 @@ def rt_phases(dev, card) -> list:
           host_s={"bvh_build_sah": bvh_build_s,
                   "block_set_and_upload": prepare_s,
                   "make_frame_fn_1024": setup_s})
-    return entries
+    # the scene and its frame, for the sharded path of phase 31
+    return entries, {"scene": scene, "cam": cam, "cfg": cfg1024,
+                     "frame": frame1024, "rays": (o1024, d1024)}
 
 
 def differ(got, want):
@@ -909,9 +967,9 @@ def small_scene(textured=False):
     return scene, northstar_camera()
 
 
-def small_phases(dev, card) -> list:
+def small_phases(dev, card) -> tuple:
     """Phases 11 to 14; returns the three small-scene kernels' entries of
-    the kernels line."""
+    the kernels line and the full-width small scene with its frame."""
     import math
 
     from skybox_rt_tpu_torch.geom import cgltrace
@@ -1298,7 +1356,8 @@ def small_phases(dev, card) -> list:
           host_s={"bvh_build_sah": bvh_build_s,
                   "clusters_and_upload": prepare_s,
                   "make_frame_fn_1024": setup_s})
-    return entries
+    return entries, {"scene": scene, "cam": cam, "cfg": cfg1024,
+                     "frame": frame1024, "rays": (o1024, d1024)}
 
 
 # float operations of one step of the differentiable pipeline's visibility
@@ -3001,6 +3060,241 @@ def cli_phase(dev, card, golden) -> None:
     phase("cli_on_card", card=card, **got)
 
 
+PARALLEL_STEPS = 3      # sharded training steps at 1024x1024
+PARALLEL_LR = 1e-7
+
+
+def gloo_raster_rank(size):
+    """One rank of a world of 2 on the one card, its collectives carried by
+    gloo (NCCL takes one rank a card): the sharded 256x256 frame and the
+    rank's launches of kernel #1."""
+    from skybox_rt_tpu_torch.geom import cgltrace
+    from skybox_rt_tpu_torch.ops import cuda_raster
+    from skybox_rt_tpu_torch.parallel import draw_shard
+    from skybox_rt_tpu_torch.parallel import mesh as mesh_mod
+    mesh = mesh_mod.make_mesh(2, device="cuda")
+    trace = cgltrace.load_trace(cgltrace.trace_path("synth_draw3d"))
+    cuda_raster.reset_launch_count()
+    fb = draw_shard.render_trace_sharded(trace, size, size, mesh)
+    return fb, cuda_raster.launch_count, str(mesh)
+
+
+def parallel_phase(dev, card, raster, northstar, small) -> dict:
+    """Phase 31: the sharded paths of parallel/ in a world of one rank over
+    NCCL, formed here by make_mesh and destroyed at the end of the phase;
+    the raster frame also in a world of two spawned ranks on the card
+    through gloo.  Returns {kernel entry name: launches on the sharded
+    paths}."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from skybox_rt_tpu_torch.diff import check, cuda_texgrad, cuda_vis
+    from skybox_rt_tpu_torch.diff import pipeline
+    from skybox_rt_tpu_torch.geom import cgltrace
+    from skybox_rt_tpu_torch.ops import cuda_raster, cuda_rt
+    from skybox_rt_tpu_torch.parallel import draw_shard, overlap, ray_shard
+    from skybox_rt_tpu_torch.parallel import mesh as mesh_mod
+    from skybox_rt_tpu_torch.parallel import scaling, tile_shard
+    from skybox_rt_tpu_torch.ref import driver
+    from skybox_rt_tpu_torch.rt import tracer, wavefront
+
+    def reset():
+        cuda_raster.reset_launch_count()
+        cuda_rt.reset_launch_counts()
+        cuda_vis.reset_launch_count()
+        cuda_texgrad.reset_launch_count()
+        overlap.reset_collective_counts()
+
+    if dist.is_initialized():
+        raise AssertionError("a process group exists before phase 31")
+    mesh = mesh_mod.make_mesh()
+    if dist.get_backend() != "nccl" or mesh.size() != 1:
+        raise AssertionError(f"mesh {mesh} over {dist.get_backend()}")
+    out, launched = {"mesh": str(mesh), "backend": dist.get_backend(),
+                     "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+                     "card": card}, {}
+    try:
+        # a. the tile-striped raster frame (kernel #1): a fresh trace's
+        # first frame measures the blend K as phase 4's first frame did
+        trace = cgltrace.load_trace(raster["trace_file"])
+        reset()
+        fb = draw_shard.render_trace_sharded(trace, SIZE, SIZE, mesh)
+        first = cuda_raster.launch_count
+        collectives = dict(overlap.collective_counts)
+        reset()
+        cached = draw_shard.render_trace_sharded(trace, SIZE, SIZE, mesh)
+        cached_launches = cuda_raster.launch_count
+        for name, img in (("first", fb), ("cached", cached)):
+            for ref_name, ref in (("JAX golden", raster["golden"]),
+                                  ("compile_frame",
+                                   raster["compile_frame"])):
+                if not np.array_equal(img, ref):
+                    raise AssertionError(
+                        f"sharded {name} frame != {ref_name}: "
+                        f"{int((img != ref).sum())} pixels differ")
+        if first != raster["launches"] or cached_launches != raster["draws"]:
+            raise AssertionError(
+                f"sharded frames launched #1 {first} / {cached_launches} "
+                f"times, unsharded {raster['launches']} / {raster['draws']}")
+        if collectives != {"all_reduce": 4 * first}:
+            raise AssertionError(f"sharded frame collectives {collectives}")
+        launched["raster_visibility"] = first
+
+        def sharded_frame():
+            return draw_shard.render_trace_sharded(trace, SIZE, SIZE, mesh)
+
+        def unsharded_frame():
+            return driver.render_trace(trace, SIZE, SIZE, mode="deferred",
+                                       device=dev)
+
+        out["raster_256"] = {
+            "equal_to_jax_golden": True, "equal_to_compile_frame": True,
+            "launches": first, "cached_launches": cached_launches,
+            "collectives": collectives,
+            **paired_ms(sharded_frame, unsharded_frame, reps=10)}
+
+        # b. the training step at 1024x1024 (kernels #4 and #5), against the
+        # port's unsharded SGD step on the same parameters
+        params_np, static_np, cfg = check.train_scene(DIFF_SIZE)
+        true, static = check.to_device(params_np, static_np, dev,
+                                       requires_grad=False)
+        with torch.no_grad():
+            target = pipeline.render_deferred(true, static, cfg)[0]
+        target = target[:cfg.height, :cfg.width].contiguous()
+        start = dict(true, color=true["color"] * 0.5)
+        sharded_np = tile_shard.shard_tiles(static_np, 1)
+        arrays = {k: torch.as_tensor(v, device=dev)
+                  for k, v in sharded_np.items()}
+        target_tiles = torch.as_tensor(tile_shard.gather_target_tiles(
+            target.cpu().numpy(), sharded_np["tile_xy"], cfg.tile_logsize),
+            device=dev)
+        step = tile_shard.make_train_step(mesh, cfg, lr=PARALLEL_LR,
+                                          grad_buckets=3)
+
+        def unsharded_step(p):
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in p.items()}
+            img = pipeline.render_deferred(leaves, static, cfg)[0]
+            loss = torch.sum((img[:cfg.height, :cfg.width] - target) ** 2)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            return ({k: v.detach() - PARALLEL_LR * g
+                     for (k, v), g in zip(leaves.items(), grads)},
+                    loss.detach())
+
+        reset()
+        p, losses = start, []
+        for _ in range(PARALLEL_STEPS):
+            p, loss, maxw = step(p, arrays, target_tiles)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        counts = (cuda_vis.launch_count, cuda_texgrad.launch_count)
+        collectives = dict(overlap.collective_counts)
+        if counts != (PARALLEL_STEPS, 5 * PARALLEL_STEPS):
+            raise AssertionError(f"sharded steps launched #4, #5 {counts}")
+        # three gradient buckets, the loss and max_writes a step
+        if collectives != {"all_reduce": 5 * PARALLEL_STEPS}:
+            raise AssertionError(f"sharded steps issued {collectives}")
+        q, plain_losses = start, []
+        for _ in range(PARALLEL_STEPS):
+            q, loss = unsharded_step(q)
+            plain_losses.append(loss)
+        losses = [float(x) for x in losses]
+        plain_losses = [float(x) for x in plain_losses]
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, plain_losses))
+        if loss_rel > 1e-6 or not all(np.isfinite(losses)):
+            raise AssertionError(f"sharded losses {losses}, unsharded "
+                                 f"{plain_losses}")
+        param_err = {}
+        for k in q:
+            a, b = p[k], q[k]
+            if not torch.allclose(a, b, rtol=1e-5, atol=0):
+                raise AssertionError(f"sharded {k} beyond rtol 1e-5 of the "
+                                     f"unsharded step's")
+            param_err[k] = float((a - b).abs().max())
+        launched["diff_visibility"], launched["diff_accumulate"] = counts
+        out["train_1024"] = {
+            "steps": PARALLEL_STEPS, "tiles": int(arrays["tile_pids"].shape[0]),
+            "losses": losses, "loss_max_rel_diff": loss_rel,
+            "params_max_abs_diff": param_err, "max_writes": int(maxw),
+            "launches": counts, "collectives": collectives,
+            **paired_ms(lambda: step(start, arrays, target_tiles),
+                        lambda: unsharded_step(start))}
+
+        # c, d. the ray-sharded frames of the large (#2, #3) and the small
+        # (#7, #8) scene at 1024x1024, scenes and blocks built once
+        for label, built, engine, names in (
+                ("northstar_1024", northstar, "pallas_bvh",
+                 ("closest_hit_bvh", "any_hit_bvh")),
+                ("small_1024", small, "pallas",
+                 ("closest_hit_clustered", "any_hit_clustered"))):
+            scene, cam = built["scene"], built["cam"]
+            cfg_rt = dataclasses.replace(built["cfg"], engine=engine)
+            if tracer.resolve_engine(cfg_rt, scene.faces.shape[0]) != \
+                    engine:
+                raise AssertionError(f"{label} does not take {engine}")
+            intersectors = tracer.make_intersectors(scene, cfg_rt, dev)
+            want = built["frame"](*built["rays"])
+            reset()
+            img = ray_shard.render_sharded(scene, cam, cfg_rt, mesh,
+                                           intersectors)
+            torch.cuda.synchronize()
+            counts = tuple(cuda_rt.launch_counts[n] for n in names)
+            collectives = dict(overlap.collective_counts)
+            if counts != (3, 3) or sum(cuda_rt.launch_counts.values()) != 6:
+                raise AssertionError(f"{label} launched "
+                                     f"{dict(cuda_rt.launch_counts)}")
+            if collectives != {"all_gather": 1}:
+                raise AssertionError(f"{label} issued {collectives}")
+            diff = float((img - want).abs().max())
+            if tuple(img.shape) != (RT_SIZE, RT_SIZE, 4) or not diff <= 1e-6:
+                raise AssertionError(f"{label}: {tuple(img.shape)}, max "
+                                     f"|diff| {diff} from make_frame_fn's")
+            for n, c in zip(names, counts):
+                launched["rt_" + n] = c
+            # the host work render_sharded repeats a call that make_frame_fn
+            # does once (its intersectors are passed in), host clock
+            host_ms = {name: timed(fn)[1] * 1e3 for name, fn in (
+                ("scene_shade_arrays",
+                 lambda: tracer.scene_shade_arrays(scene, cfg_rt, dev)),
+                ("camera_rays",
+                 lambda: tracer.camera_rays(cam, RT_SIZE, RT_SIZE, dev)),
+                ("tile_order_perm",
+                 lambda: wavefront.tile_order_perm(RT_SIZE, RT_SIZE, 32)))}
+            out[label] = {
+                "engine": engine, "launches": counts, "host_ms": host_ms,
+                "collectives": collectives, "max_abs_diff": diff,
+                **paired_ms(lambda: ray_shard.render_sharded(
+                    scene, cam, cfg_rt, mesh, intersectors),
+                    lambda: built["frame"](*built["rays"]))}
+    finally:
+        dist.destroy_process_group()
+
+    # e. the scaling sweep: a spawned world of each size up to the host's
+    # card count (one here)
+    t0 = time.perf_counter()
+    out["scaling"] = {str(n): r for n, r in scaling.measure().items()}
+    out["scaling"]["seconds"] = time.perf_counter() - t0
+
+    # f. the raster frame in a world of two ranks on the one card, gloo
+    # carrying the CUDA tensors' collectives
+    t0 = time.perf_counter()
+    fb2, launches2, mesh2 = mesh_mod.spawn(gloo_raster_rank, 2, SIZE,
+                                           backend="gloo")
+    if not np.array_equal(fb2, raster["golden"]):
+        raise AssertionError(f"2-rank gloo frame != JAX golden: "
+                             f"{int((fb2 != raster['golden']).sum())} pixels")
+    if launches2 != raster["launches"]:
+        raise AssertionError(f"a gloo rank launched #1 {launches2} times")
+    out["raster_256_gloo_2_ranks"] = {
+        "mesh": mesh2, "equal_to_jax_golden": True,
+        "rank0_launches": launches2,
+        "seconds": time.perf_counter() - t0}
+    phase("parallel", **out)
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -3218,8 +3512,9 @@ def main() -> int:
         "mpix_per_s": SIZE * SIZE * draws / frame_ms / 1e3}
     phase("timing", card=card, reps=REPS, **timings)
 
-    rt_entries = rt_phases(dev, card) + small_phases(dev, card) \
-        + diff_phases(dev, card)
+    large_entries, northstar = rt_phases(dev, card)
+    small_entries, small = small_phases(dev, card)
+    rt_entries = large_entries + small_entries + diff_phases(dev, card)
     config3_entries, flat_bounce = config3_phases(dev, card)
     next(e for e in rt_entries if e["name"] == "rt_closest_hit_flat")[
         "bounce1_sample"] = flat_bounce
@@ -3227,11 +3522,14 @@ def main() -> int:
                   + apps_phases(dev, card))
     bench_phase(dev, card)
     cli_phase(dev, card, golden)
+    sharded = parallel_phase(dev, card, {
+        "trace_file": trace_file, "golden": golden, "compile_frame": framed,
+        "launches": launches, "draws": draws}, northstar, small)
 
     phase("total", seconds=time.perf_counter() - T0)
     print(card)
     p256 = timings["pass1_256"]
-    print(json.dumps({"kernels": [{
+    entries = [{
         "name": "raster_visibility", "route": "cuda",
         "source": "skybox_rt_tpu_torch/csrc/raster_visibility.cu",
         "replaces": "skybox_rt_tpu/ops/pallas_raster.py:63",
@@ -3239,7 +3537,11 @@ def main() -> int:
         "ms": p256["kernel_ms"], "graph_ms": p256["graph_ms"],
         "plain_ms": p256["plain_ms"], **p256["bound"],
         "library_ms": None,     # no single PyTorch call computes this
-        }] + rt_entries}))
+        }] + rt_entries
+    for entry in entries:
+        if entry["name"] in sharded:
+            entry["sharded_launches"] = sharded[entry["name"]]
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

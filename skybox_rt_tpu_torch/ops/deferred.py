@@ -207,19 +207,32 @@ def render_drawcall(render_state: RenderState, texels, binned, fb_color,
     device = fb_color.device
     if texels is None:
         texels = _dummy_texels(device)
-    args = (render_state, texels, device_arrays(binned, device), fb_color,
-            fb_ds, binned.tile_logsize)
+    arrays = device_arrays(binned, device)
 
+    def run(k):
+        return render_arrays(render_state, texels, arrays, fb_color, fb_ds,
+                             binned.tile_logsize, blend_slots=k)
+
+    return dispatch_blend_slots(run, render_state, binned.tile_pids.shape[1],
+                                info, blend_k, overflow_out)
+
+
+def dispatch_blend_slots(run, render_state: RenderState, max_k: int,
+                         info=None, blend_k=None, overflow_out=None):
+    """The blend-slot protocol of :func:`render_drawcall` around
+    ``run(k) -> (fb_color, fb_ds, max_frag_count)``, which renders the draw
+    with k slots (0: the opaque pass) from the same inputs every time;
+    ``max_k`` is the draw's prims a tile, which no count exceeds.  Returns
+    (fb_color, fb_ds)."""
     if deferrable(render_state):
-        fbc, fbd, _ = render_arrays(*args)
+        fbc, fbd, _ = run(0)
         if info is not None:
             info["blend_k"] = 0
         return fbc, fbd
 
-    max_k = binned.tile_pids.shape[1]          # cannot exceed prims/tile
     if blend_k is not None:
         k = min(max(int(blend_k), 1), max_k)
-        fbc, fbd, max_cnt = render_arrays(*args, blend_slots=k)
+        fbc, fbd, max_cnt = run(k)
         if overflow_out is not None:
             overflow_out.append((k, max_cnt))   # verified at frame end
             if info is not None:
@@ -235,8 +248,7 @@ def render_drawcall(render_state: RenderState, texels, binned, fb_color,
     else:
         k = DEFAULT_BLEND_SLOTS
     while True:
-        fbc, fbd, max_cnt = render_arrays(*args,
-                                             blend_slots=min(k, max_k))
+        fbc, fbd, max_cnt = run(min(k, max_k))
         m = int(max_cnt)
         if m <= k or k >= max_k:
             break

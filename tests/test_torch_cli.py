@@ -153,8 +153,15 @@ def test_fit_prints_the_jax_keys_and_losses(capsys, tmp_path, monkeypatch):
 
 
 def test_scale_waits_for_parallel():
-    with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["scale"])
+    """`scale`, which waited for the port of parallel/, parses as the JAX
+    package's command does, with --device beside (the sweep itself:
+    tests/test_torch_parallel_rt.py)."""
+    got = vars(cli.build_parser().parse_args(["scale"]))
+    want = vars(jax_cli.build_parser().parse_args(["scale"]))
+    assert got.pop("device") is None
+    assert got.pop("fn") is cli._cmd_scale
+    want.pop("fn")
+    assert got == want
 
 
 def test_module_runs_in_a_process_of_its_own():

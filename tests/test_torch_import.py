@@ -2,8 +2,9 @@
 skybox_rt_tpu_torch, rendering a raster frame (binned by the native engine)
 with its statistics, asking the command line for the device's caps,
 rendering a ray-traced frame (every engine) and the ray-traced CGLTrace
-frame, taking training steps of the differentiable render and running the
-apps on the CPU loads neither jax, optax, orbax nor skybox_rt_tpu, and
+frame, taking training steps of the differentiable render, running the
+apps and the sharded raster frame of a one-rank world on the CPU loads
+neither jax, optax, orbax nor skybox_rt_tpu, and
 chip_smoke.py refuses to run without a card."""
 import importlib.util
 import json
@@ -79,6 +80,13 @@ from skybox_rt_tpu_torch.apps import compute, lbm, om_app
 sg = compute.sgemm_pallas(torch.ones(8, 4), torch.ones(4, 8), block=(4, 4, 4))
 lbm.run(lbm.LBMConfig(8, 8, 4), steps=1, device="cpu")
 om_app.run(8, 8, device="cpu")
+from skybox_rt_tpu_torch.parallel import draw_shard, mesh
+sharded = draw_shard.render_trace_sharded(trace, 32, 32,
+                                          mesh.make_mesh(device="cpu"), 3)
+import torch.distributed
+torch.distributed.destroy_process_group()
+unsharded = driver.render_trace(trace, 32, 32, 3, mode="deferred",
+                                device="cpu")
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "optax", "orbax",
                                        "skybox_rt_tpu"))
@@ -93,7 +101,8 @@ print(json.dumps({"loaded": loaded, "shape": list(fb.shape),
                   "config3_vs_scan": float(abs(fused - bridged).max()),
                   "rt_diff_grad": float(v.grad.abs().max()),
                   "fit_losses": fit.losses,
-                  "sgemm": float(sg.sum())}))
+                  "sgemm": float(sg.sum()),
+                  "sharded_equal": bool((sharded == unsharded).all())}))
 """
 
 
@@ -113,21 +122,23 @@ def probe():
 
 
 _DTYPE_ALIASES = "jnp dtype aliases: the port names torch dtypes"
-_QUEUED = "module not ported yet (ROADMAP.md section 1, module queue)"
 #: the JAX package's modules whose port has another name
 _RENAMED = {"ops/pallas_rt.py": "ops/cuda_rt.py",
             "ops/pallas_raster.py": "ops/cuda_raster.py",
             "diff/pallas_vis.py": "diff/cuda_vis.py",
             "diff/pallas_texgrad.py": "diff/cuda_texgrad.py"}
 #: module of the JAX package -> {public name the port does not carry:
-#: why}; a module that is absent from the port maps to its reason
+#: why}
 NOT_CARRIED = {
-    "parallel/__init__.py": _QUEUED,
-    "parallel/draw_shard.py": _QUEUED, "parallel/mesh.py": _QUEUED,
-    "parallel/overlap.py": _QUEUED, "parallel/ray_shard.py": _QUEUED,
-    "parallel/scaling.py": _QUEUED, "parallel/tile_shard.py": _QUEUED,
-    "cli.py": {"_cmd_scale": "the mesh scaling sweep waits for the port "
-                             "of parallel/ (ROADMAP.md section 1)"},
+    "parallel/mesh.py": {
+        "tile_sharding": "returns a jax NamedSharding, which torch has not; "
+                         "a rank takes its block with mesh.tile_block"},
+    "parallel/overlap.py": {
+        "count_all_reduces": "parses XLA's HLO text, which eager torch has "
+                             "not; overlap.collective_counts counts the "
+                             "collectives as they are issued",
+        "collective_schedule_report": "parses XLA's scheduled HLO text, "
+                                      "which eager torch has not"},
     "runtime/perf.py": {
         "V5E_PEAKS": "a TPU's peaks; the port's rooflines default to "
                      "H100_PEAKS",
@@ -177,6 +188,8 @@ NOT_CARRIED = {
     "rt/tracer.py": {n: "TPU kernel knob" for n in (
         "BVH_UNROLL", "BVH_EARLY_EXIT", "BVH_EARLY_EXIT_BOUNCE")},
     **{m: {n: _DTYPE_ALIASES for n in names} for m, names in (
+        ("parallel/draw_shard.py", ("I32", "U32")),
+        ("parallel/tile_shard.py", ("F32",)),
         ("ops/deferred.py", ("I32", "U32")), ("rt/bvh.py", ("F32", "I32")),
         ("rt/intersect.py", ("F32", "I32")), ("rt/wavefront.py",
                                               ("I32", "U32")),
@@ -222,10 +235,7 @@ def test_public_names_carried_or_listed(module):
     port = os.path.join(REPO, "skybox_rt_tpu_torch",
                         _RENAMED.get(module, module))
     listed = NOT_CARRIED.get(module, {})
-    if listed == _QUEUED:
-        assert not os.path.exists(port), f"{module} is ported: unlist it"
-        return
-    assert os.path.exists(port), f"{module} has no port and is not listed"
+    assert os.path.exists(port), f"{module} has no port"
     jax_path = os.path.join(REPO, "skybox_rt_tpu", module)
     missing = _public_names(jax_path) - _public_names(port)
     public = {n for n in listed if not n.startswith("_")}
@@ -264,7 +274,10 @@ def test_every_module_listed():
               "apps.tex_app", "apps.raster_app", "texture.convert",
               "texture.units", "geom.native", "geom.validate",
               "runtime.perf", "runtime.device", "utils.tracing",
-              "utils.image", "models.obj", "cli", "__main__"):
+              "utils.image", "models.obj", "cli", "__main__",
+              "parallel.mesh", "parallel.overlap", "parallel.draw_shard",
+              "parallel.tile_shard", "parallel.ray_shard",
+              "parallel.scaling"):
         assert f"skybox_rt_tpu_torch.{m}" in MODULES
 
 
@@ -286,6 +299,8 @@ def test_no_jax_after_import_and_render(probe):
     losses = probe["fit_losses"]
     assert len(losses) == 3 and losses[2] < losses[1] < losses[0]
     assert probe["sgemm"] == 8 * 8 * 4
+    # a world of one rank in one process: the sharded raster frame
+    assert probe["sharded_equal"]
 
 
 _BAD_IMPORT = re.compile(
