@@ -11,7 +11,8 @@ same surface:
       [--perf]
   python -m skybox_rt_tpu_torch bench  [-t synth_draw3d] [-w 512] [--frames 20]
   python -m skybox_rt_tpu_torch info
-  python -m skybox_rt_tpu_torch rt     [-w 256 -H 256] [--engine pallas]
+  python -m skybox_rt_tpu_torch rt     [-w 256 -H 256] [--engine pallas] \\
+      [--spans trace.json]
   python -m skybox_rt_tpu_torch fit    [-w 64] [--steps 200]
   python -m skybox_rt_tpu_torch scale  [-w 256] [--iters 10] [--artifact P]
 
@@ -218,6 +219,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("pallas", "pallas_bvh", "pallas_worklist",
                             "bvh", "brute"),
                    default="pallas")
+    t.add_argument("--spans", default=None, metavar="PATH",
+                   help="trace the render's rt.* stages and write them as "
+                        "a Chrome trace (utils.tracing.export_chrome_trace)")
     t.set_defaults(fn=_cmd_rt)
 
     f = sub.add_parser("fit", parents=[common],
@@ -327,6 +331,19 @@ def _cmd_rt(args) -> int:
 
 
 def _run_rt(args, scene, cam) -> int:
+    from .utils import tracing
+
+    if not args.spans:
+        return _render_rt(args, scene, cam)
+    tracing.reset_stages()
+    with tracing.enable():
+        rc = _render_rt(args, scene, cam)
+    tracing.export_chrome_trace(args.spans)
+    print(f"wrote {args.spans}")
+    return rc
+
+
+def _render_rt(args, scene, cam) -> int:
     from .core.device import resolve_device, synchronize
     from .rt import tracer
 

@@ -24,6 +24,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..diff.pipeline import sample_texture_bilinear
+from ..utils.tracing import count, stage
 from . import bvh as bvh_mod
 from . import intersect
 from . import wavefront
@@ -152,8 +153,9 @@ class RTScene:
         if self.normals is None:
             self.normals = vertex_normals(self.verts, self.faces)
         if self.bvh is None:
-            self.bvh = bvh_mod.build(self.verts, self.faces,
-                                     method=self.bvh_method)
+            with stage("rt.prepare.bvh", method=self.bvh_method):
+                self.bvh = bvh_mod.build(self.verts, self.faces,
+                                         method=self.bvh_method)
         return self
 
 
@@ -375,8 +377,10 @@ def make_intersectors(scene: RTScene, cfg: RTConfig, device=None):
     return closest, occluded
 
 
-def shade_hits(scene_arrays, cfg: RTConfig, occluded, o, d, prim, t, u, v):
-    """Lambert + optional texture + optional shadow for a hit batch.
+def shade_hits(scene_arrays, cfg: RTConfig, occluded, o, d, prim, t, u, v,
+               bounce: int = 0):
+    """Lambert + optional texture + optional shadow for a hit batch; the
+    shadow query runs in the stage ``rt.occlusion`` of ``bounce``.
 
     Returns (rgb (R,3), hit_mask (R,), hit_point, normal)."""
     dev = o.device
@@ -410,7 +414,9 @@ def shade_hits(scene_arrays, cfg: RTConfig, occluded, o, d, prim, t, u, v):
         need = hit & (ndotl > 0.0)
         sh_o = torch.where(need[..., None], pt + n * 1e-3, _vec(PARK_O, dev))
         sh_d = torch.broadcast_to(ldir, sh_o.shape).contiguous()
-        blocked = occluded(sh_o, sh_d, 1e8)
+        with stage("rt.occlusion", stream=True, bounce=bounce,
+                   width=sh_o.shape[0]):
+            blocked = occluded(sh_o, sh_d, 1e8)
         ndotl = torch.where(blocked, torch.zeros_like(ndotl), ndotl)
 
     lc = _vec(cfg.light_color, dev)
@@ -455,11 +461,22 @@ def _ladder_width(R: int, live: int, ladder: int) -> int:
 @torch.no_grad()
 def trace_rays(scene_arrays, cfg: RTConfig, closest, occluded,
                reflectivity: float, o, d):
-    """Trace + shade one ray batch -> (R, 4) RGBA."""
+    """Trace + shade one ray batch -> (R, 4) RGBA.
+
+    Each query, shade, compaction, host read and accumulation runs in a
+    ``utils.tracing`` stage named ``rt.*`` with its bounce (0 = primary);
+    the shade, shadow and compaction stages record device-stream times
+    whenever tracing is on.  The stay-compacted loop counts
+    ``rt.rays_live`` (each bounce's live count, already on the host) and
+    ``rt.rays_launched`` (each bounce's closest-hit width).  None of them
+    reads the device."""
     dev = o.device
-    prim, t, u, v = closest(o, d)
-    rgb, hit, pt, n = shade_hits(scene_arrays, cfg, occluded,
-                                 o, d, prim, t, u, v)
+    R = o.shape[0]
+    with stage("rt.closest", bounce=0, width=R):
+        prim, t, u, v = closest(o, d)
+    with stage("rt.shade", stream=True, bounce=0):
+        rgb, hit, pt, n = shade_hits(scene_arrays, cfg, occluded,
+                                     o, d, prim, t, u, v)
     bg = _vec(cfg.background, dev)
     bg3 = bg[:3]
 
@@ -473,101 +490,128 @@ def trace_rays(scene_arrays, cfg: RTConfig, closest, occluded,
         refl = torch.where(hit2, reflectivity, 0.0).to(F32)[..., None]
         return rgb, weight * refl
 
+    def pack(ro, rd, rgb, weight, hitf):
+        """The live mask and the (R, 11) packed bounce state: dead rays
+        parked at a far origin, heading away."""
+        active = weight[..., 0] > 0
+        return active, torch.cat(
+            [torch.where(active[..., None], ro, park_o),
+             torch.where(active[..., None], rd, park_d),
+             rgb, weight, hitf], dim=1)
+
     # mirror bounces: active-mask iteration
     if cfg.bounces > 0 and reflectivity > 0:
         if cfg.compact_method not in COMPACT_METHODS:
             raise ValueError(f"unknown compact_method {cfg.compact_method!r}")
-        weight = torch.where(hit, reflectivity, 0.0).to(F32)[..., None]
-        cur_o, cur_d, cur_n = pt, d, n
-        park_o, park_d = _vec(PARK_O, dev), _vec(PARK_D, dev)
         if cfg.compact_bounces and cfg.compact_stay:
             # Stay-compacted bounce loop: state lives in the compacted
             # order of the LATEST bounce; `orig` maps each slot back to
             # launch order and ONE final scatter restores it.  Per-ray
             # arithmetic is identical to the other loops: pure scheduling.
-            R = rgb.shape[0]
-            orig = torch.arange(R, device=dev)
-            hitf = hit.to(F32)[:, None]
             sort_ladder = (cfg.bounce_width_ladder
                            if cfg.compact_method in ("argsort", "argsort_om")
                            else 0)
             prev_live = None
-            for b in range(cfg.bounces):
-                ro, rd = reflect(cur_o, cur_d, cur_n)
-                active = weight[..., 0] > 0
-                packed = torch.cat(
-                    [torch.where(active[..., None], ro, park_o),
-                     torch.where(active[..., None], rd, park_d),
-                     rgb, weight, hitf], dim=1)       # (R, 11)
-                live = int(active.sum().item())       # the bounce's one sync
-                if b > 0 and sort_ladder:
-                    # Compaction ladder: bounce b's live rays all sit in
-                    # bounce b-1's live prefix, so the argsort + packed
-                    # gather only need the first w rows — the stable sort
-                    # gives the live rays the SAME order as a full-width
-                    # sort (dead keys are all the max sentinel; only the
-                    # dead tail's order differs, which nothing observes).
-                    key = _compact_key(
-                        active, ro, rd,
-                        origin_major=cfg.compact_method == "argsort_om")
-                    w = _ladder_width(R, prev_live, sort_ladder)
-                    pw = torch.argsort(key[:w], stable=True)
-                    pc = torch.cat([packed[:w][pw], packed[w:]])
-                    orig = torch.cat([orig[:w][pw], orig[w:]])
-                else:
-                    perm, _ = _compact_perm(active, ro, rd,
-                                            cfg.compact_method,
-                                            want_inv=False)
-                    pc = packed[perm]                 # ONE row gather
-                    orig = orig[perm]
-                prev_live = live
-                ro_c, rd_c = pc[:, 0:3], pc[:, 3:6]
-                rgb, weight, hitf = pc[:, 6:9], pc[:, 9:10], pc[:, 10:11]
-
+            with stage("rt.accumulate", bounce=0):
+                weight = torch.where(hit, reflectivity, 0.0).to(F32)[..., None]
+                park_o, park_d = _vec(PARK_O, dev), _vec(PARK_D, dev)
+                orig = torch.arange(R, device=dev)
+                hitf = hit.to(F32)[:, None]
+                ro, rd = reflect(pt, d, n)
+                active, packed = pack(ro, rd, rgb, weight, hitf)
+            for b in range(1, cfg.bounces + 1):
+                with stage("rt.sync", bounce=b) as attrs:
+                    live = int(active.sum().item())   # the bounce's one sync
+                    attrs["live"] = live
+                count("rt.rays_live", live)
+                # Compaction ladder: bounce b's live rays all sit in bounce
+                # b-1's live prefix, so the argsort + packed gather only
+                # need the first sw rows — the stable sort gives the live
+                # rays the SAME order as a full-width sort (dead keys are
+                # all the max sentinel; only the dead tail's order differs,
+                # which nothing observes).
+                ladder_sort = b > 1 and sort_ladder
+                sw = (_ladder_width(R, prev_live, sort_ladder) if ladder_sort
+                      else R)
                 w = _ladder_width(R, live, cfg.bounce_width_ladder)
-                ro_s = ro_c[:w].contiguous()
-                rd_s = rd_c[:w].contiguous()
-                p2, t2, u2, v2 = closest(ro_s, rd_s)
-                rgb2, hit2, pt2, n2 = shade_hits(
-                    scene_arrays, cfg, occluded, ro_s, rd_s, p2, t2, u2, v2)
-                pad = R - w
-                if pad:
-                    z3 = torch.zeros((pad, 3), dtype=F32, device=dev)
-                    rgb2 = torch.cat([rgb2, z3])
-                    hit2 = torch.cat([hit2, torch.zeros(
-                        (pad,), dtype=torch.bool, device=dev)])
-                    pt2 = torch.cat([pt2, z3 + park_o])
-                    n2 = torch.cat([n2, z3 + _vec((0.0, 0.0, 1.0), dev)])
-                rgb, weight = accumulate(rgb, weight, rgb2, hit2)
-                cur_o, cur_d, cur_n = pt2, rd_c, n2
-            out = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
-            rgba = torch.where(hitf > 0.5, out, bg)
-            final = torch.empty_like(rgba)
-            final[orig] = rgba        # unique indices: a plain scatter
+                with stage("rt.compact", stream=True, bounce=b, width=sw):
+                    if ladder_sort:
+                        key = _compact_key(
+                            active, ro, rd,
+                            origin_major=cfg.compact_method == "argsort_om")
+                        pw = torch.argsort(key[:sw], stable=True)
+                        pc = torch.cat([packed[:sw][pw], packed[sw:]])
+                        orig = torch.cat([orig[:sw][pw], orig[sw:]])
+                    else:
+                        perm, _ = _compact_perm(active, ro, rd,
+                                                cfg.compact_method,
+                                                want_inv=False)
+                        pc = packed[perm]             # ONE row gather
+                        orig = orig[perm]
+                    prev_live = live
+                    rd_c = pc[:, 3:6]
+                    rgb, weight, hitf = pc[:, 6:9], pc[:, 9:10], pc[:, 10:11]
+                    ro_s = pc[:w, 0:3].contiguous()
+                    rd_s = rd_c[:w].contiguous()
+                count("rt.rays_launched", w)
+                with stage("rt.closest", bounce=b, width=w):
+                    p2, t2, u2, v2 = closest(ro_s, rd_s)
+                with stage("rt.shade", stream=True, bounce=b):
+                    rgb2, hit2, pt2, n2 = shade_hits(
+                        scene_arrays, cfg, occluded, ro_s, rd_s,
+                        p2, t2, u2, v2, bounce=b)
+                with stage("rt.accumulate", bounce=b):
+                    pad = R - w
+                    if pad:
+                        z3 = torch.zeros((pad, 3), dtype=F32, device=dev)
+                        rgb2 = torch.cat([rgb2, z3])
+                        hit2 = torch.cat([hit2, torch.zeros(
+                            (pad,), dtype=torch.bool, device=dev)])
+                        pt2 = torch.cat([pt2, z3 + park_o])
+                        n2 = torch.cat([n2, z3 + _vec((0.0, 0.0, 1.0), dev)])
+                    rgb, weight = accumulate(rgb, weight, rgb2, hit2)
+                    if b < cfg.bounces:
+                        ro, rd = reflect(pt2, rd_c, n2)
+                        active, packed = pack(ro, rd, rgb, weight, hitf)
+            with stage("rt.unsort"):
+                out = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+                rgba = torch.where(hitf > 0.5, out, bg)
+                final = torch.empty_like(rgba)
+                final[orig] = rgba    # unique indices: a plain scatter
             return final
-        for _ in range(cfg.bounces):
-            ro, rd = reflect(cur_o, cur_d, cur_n)
+        with stage("rt.accumulate", bounce=0):
+            weight = torch.where(hit, reflectivity, 0.0).to(F32)[..., None]
+            park_o, park_d = _vec(PARK_O, dev), _vec(PARK_D, dev)
+            ro, rd = reflect(pt, d, n)
+        for b in range(1, cfg.bounces + 1):
             if cfg.compact_bounces:
                 # re-compaction between bounces: sort surviving rays to
                 # the front and park dead rays at a far origin, heading
                 # away.  Shading (incl. the shadow launch) runs in the
-                # compacted order too; outputs unsort at the end.
-                active = weight[..., 0] > 0
-                perm, inv_perm = _compact_perm(active, ro, rd,
-                                               cfg.compact_method)
-                ro_c = torch.where(active[..., None], ro, park_o)[perm]
-                rd_c = torch.where(active[..., None], rd, park_d)[perm]
-                p2, t2, u2, v2 = closest(ro_c, rd_c)
-                rgb2, hit2, pt2, n2 = shade_hits(
-                    scene_arrays, cfg, occluded, ro_c, rd_c, p2, t2, u2, v2)
-                rgb2, pt2, n2 = rgb2[inv_perm], pt2[inv_perm], n2[inv_perm]
-                hit2 = hit2[inv_perm]
+                # compacted order too; outputs unsort after it.
+                with stage("rt.compact", stream=True, bounce=b, width=R):
+                    active = weight[..., 0] > 0
+                    perm, inv_perm = _compact_perm(active, ro, rd,
+                                                   cfg.compact_method)
+                    ro_c = torch.where(active[..., None], ro, park_o)[perm]
+                    rd_c = torch.where(active[..., None], rd, park_d)[perm]
             else:
-                p2, t2, u2, v2 = closest(ro, rd)
+                ro_c, rd_c = ro, rd
+            with stage("rt.closest", bounce=b, width=R):
+                p2, t2, u2, v2 = closest(ro_c, rd_c)
+            with stage("rt.shade", stream=True, bounce=b):
                 rgb2, hit2, pt2, n2 = shade_hits(
-                    scene_arrays, cfg, occluded, ro, rd, p2, t2, u2, v2)
-            rgb, weight = accumulate(rgb, weight, rgb2, hit2)
-            cur_o, cur_d, cur_n = pt2, rd, n2
+                    scene_arrays, cfg, occluded, ro_c, rd_c, p2, t2, u2, v2,
+                    bounce=b)
+            if cfg.compact_bounces:
+                with stage("rt.unsort", bounce=b):
+                    rgb2, pt2, n2 = (rgb2[inv_perm], pt2[inv_perm],
+                                     n2[inv_perm])
+                    hit2 = hit2[inv_perm]
+            with stage("rt.accumulate", bounce=b):
+                rgb, weight = accumulate(rgb, weight, rgb2, hit2)
+                if b < cfg.bounces:
+                    ro, rd = reflect(pt2, rd, n2)
 
     out = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
     return torch.where(hit[..., None], out, bg)
@@ -584,20 +628,27 @@ def make_frame_fn(scene: RTScene, cam: Camera, cfg: RTConfig, device=None):
     rays come back, and are expected, in 32x32 pixel-tile order
     (rt.wavefront.tile_order_perm), which keeps the rays of a warp together;
     the image is unsorted at the end.  For 'bvh' and 'brute' they are in
-    scanline order.
+    scanline order.  Set-up runs in the ``utils.tracing`` stage
+    ``rt.prepare`` (``.bvh``, ``.shade_arrays``, ``.engine``, ``.rays``
+    inside it), each frame in ``rt.frame``, which opens a frame id.
     """
     device = resolve_device(device)
-    scene = scene.finalize()
-    scene_arrays = scene_shade_arrays(scene, cfg, device)
-    closest, occluded = make_intersectors(scene, cfg, device)
-    o, d = camera_rays(cam, cfg.width, cfg.height, device)
-
-    inv_t = None
-    if (cfg.engine if cfg.use_bvh else "brute").startswith("pallas"):
-        perm, inv = wavefront.tile_order_perm(cfg.width, cfg.height, 32)
-        perm_t = torch.as_tensor(perm, device=device).long()
-        o, d = o[perm_t], d[perm_t]
-        inv_t = torch.as_tensor(inv, device=device).long()
+    engine = resolve_engine(cfg, len(scene.faces))
+    with stage("rt.prepare", engine=engine, triangles=len(scene.faces)):
+        scene = scene.finalize()
+        with stage("rt.prepare.shade_arrays"):
+            scene_arrays = scene_shade_arrays(scene, cfg, device)
+        with stage("rt.prepare.engine", engine=engine):
+            closest, occluded = make_intersectors(scene, cfg, device)
+        with stage("rt.prepare.rays", width=cfg.width, height=cfg.height):
+            o, d = camera_rays(cam, cfg.width, cfg.height, device)
+            inv_t = None
+            if (cfg.engine if cfg.use_bvh else "brute").startswith("pallas"):
+                perm, inv = wavefront.tile_order_perm(cfg.width, cfg.height,
+                                                      32)
+                perm_t = torch.as_tensor(perm, device=device).long()
+                o, d = o[perm_t], d[perm_t]
+                inv_t = torch.as_tensor(inv, device=device).long()
 
     def on_device(a):
         if not torch.is_tensor(a):
@@ -605,12 +656,13 @@ def make_frame_fn(scene: RTScene, cam: Camera, cfg: RTConfig, device=None):
         return a.to(device=device, dtype=F32)
 
     def frame(o, d):
-        o, d = on_device(o), on_device(d)
-        img = trace_rays(scene_arrays, cfg, closest, occluded,
-                         scene.reflectivity, o, d)
-        if inv_t is not None:
-            img = img[inv_t]
-        return img.reshape(cfg.height, cfg.width, 4)
+        with stage("rt.frame", frame=True):
+            o, d = on_device(o), on_device(d)
+            img = trace_rays(scene_arrays, cfg, closest, occluded,
+                             scene.reflectivity, o, d)
+            if inv_t is not None:
+                img = img[inv_t]
+            return img.reshape(cfg.height, cfg.width, 4)
 
     return frame, (o, d)
 
