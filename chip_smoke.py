@@ -56,8 +56,8 @@ exits non-zero, and only a run where every phase passed prints the final
                atol 1e-4 and >= 99.9 % of values within 2e-5; 3 + 3 launches
   9. rt_frame_1024 — the full-width frame, 1,048,576 rays: finite, alpha 1,
                primary hit mask equal to the plain version's on a 65,536-ray
-               sample, 3 + 3 launches (the counts are set to 0 just before
-               and read just after)
+               sample, 3 + 3 launches and 3 of the shade kernel (the counts
+               are set to 0 just before and read just after)
  10. rt_timing — CUDA events, median of 20: each of the six launches'
                kernels alone (around the call, and as a CUDA graph's replay:
                ``graph_ms``, without the host's work around the launch), the
@@ -96,7 +96,8 @@ exits non-zero, and only a run where every phase passed prints the final
                frame's to 3 digits, primary hit mask equal to the flat
                kernel's on a 65,536-ray sample.  The counts are set to 0
                just before the frame and read just after it: 3 + 3 clustered
-               launches and no other; the flat kernel's 1 launch that follows
+               launches, 3 of the shade kernel and no other; the flat
+               kernel's 1 launch that follows
                is this script's oracle check (the tracer reaches that kernel
                through no engine), and its entry says so: ``tracer_launches``
                0, ``launched_by``
@@ -106,6 +107,18 @@ exits non-zero, and only a run where every phase passed prints the final
                launch (and as a graph's replay, of 5), the plain versions on
                the samples, the whole
                1024x1024 and 256x256 frames
+ 14b. rt_shade — the shade kernel (csrc/rt_shade.cu) on the benchmark's two
+               scenes at 1024x1024, 2 bounces, shadows (the 184,832-triangle
+               field untextured, the 12,032-triangle one textured): each of
+               a frame's three shade calls, captured from trace_rays, kernel
+               against its plain twin bit for bit (outputs and the shadow
+               rays handed to the query); the frame bit-equal to the frame
+               with rt.tracer.shade_hits patched to the twin; 3 launches a
+               frame; CUDA-event medians of 20 of each call with the query's
+               answer replayed (the kernel and the torch.where after it,
+               around the call and as a graph's replay) and of the twin,
+               beside the bound; the kernel's device time a frame under the
+               profiler; both frames' medians
 
   15. diff_vis_vs_plain — the differentiable pipeline's hard-mode visibility
                kernel against the plain chunk reduction (engine="xla") on the
@@ -862,9 +875,11 @@ def rt_phases(dev, card) -> tuple:
     torch.cuda.synchronize()
     counts = (cuda_rt.launch_counts["closest_hit_bvh"],
               cuda_rt.launch_counts["any_hit_bvh"])
-    if counts != (3, 3) or sum(cuda_rt.launch_counts.values()) != 6:
+    if counts != (3, 3) or cuda_rt.launch_counts["shade_hits"] != 3 \
+            or sum(cuda_rt.launch_counts.values()) != 9:
         raise AssertionError(f"1024 frame launched {cuda_rt.launch_counts}, "
-                             f"expected 3 + 3 of the BVH-block kernels")
+                             f"expected 3 + 3 of the BVH-block kernels and "
+                             f"3 of the shade kernel")
     if tuple(img.shape) != (RT_SIZE, RT_SIZE, 4) or img.dtype != torch.float32:
         raise AssertionError(f"1024 frame is {tuple(img.shape)} {img.dtype}")
     if not bool(torch.isfinite(img).all()) or not bool((img[..., 3] == 1).all()):
@@ -1262,13 +1277,15 @@ def small_phases(dev, card) -> tuple:
     cuda_rt.reset_launch_counts()
     img = frame1024(o1024, d1024)
     torch.cuda.synchronize()
-    # the tracer launches the clustered pair and nothing else: neither the
-    # flat kernel (no engine reaches it) nor the BVH-block kernels
+    # the tracer launches the clustered pair and the shade kernel and
+    # nothing else: neither the flat kernel (no engine reaches it) nor the
+    # BVH-block kernels
     if cuda_rt.launch_counts != {"closest_hit_clustered": 3,
-                                 "any_hit_clustered": 3}:
+                                 "any_hit_clustered": 3, "shade_hits": 3}:
         raise AssertionError(f"small 1024 frame launched "
                              f"{dict(cuda_rt.launch_counts)}, expected 3 + 3 "
-                             f"of the clustered kernels only")
+                             f"of the clustered kernels and 3 of the shade "
+                             f"kernel only")
     stride = RT_SIZE * RT_SIZE // RT_SAMPLE
     prim_flat = cuda_rt.closest_hit_pallas(
         o1024[::stride].contiguous(), d1024[::stride].contiguous(), flat)[0]
@@ -1358,6 +1375,152 @@ def small_phases(dev, card) -> tuple:
                   "make_frame_fn_1024": setup_s})
     return entries, {"scene": scene, "cam": cam, "cfg": cfg1024,
                      "frame": frame1024, "rays": (o1024, d1024)}
+
+
+# float operations of one ray of the shade kernel (csrc/rt_shade.cu),
+# counted from its body: the hit point 6, the barycentric weight 2, the
+# normal's interpolation 15, its length 7 and division 3, the flip 6, the
+# albedo 15, the light's length 6 and division 3, ndotl 6, the two colours
+# 18, the shadow ray 7.  Textured adds the uv 10, the two taps 12, three
+# lerps a channel 27 and the texel's product 3
+SHADE_OPS = 94
+SHADE_TEX_OPS = 52
+# bytes a ray must move whatever the algorithm: o, d, prim, t, u, v read
+# (40); rgb, hit, pt, n written (37); the shadow ray written and its answer
+# read (25).  The record rows of the hit prims and the texture come on top,
+# once each
+SHADE_RAY_BYTES = 40 + 37 + 25
+
+
+def shade_phase(dev, card, large, small) -> dict:
+    """Phase 14b: the shade kernel (csrc/rt_shade.cu) on the benchmark's
+    two scenes at 1024x1024, 2 bounces, shadows: ``large``, the
+    184,832-triangle field untextured, and ``small``'s geometry textured
+    (RTScenes with their BVHs built).  Returns the kernels line's entry."""
+    from skybox_rt_tpu_torch.ops import cuda_rt
+    from skybox_rt_tpu_torch.rt import tracer
+
+    def same(got, want):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            return False
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        return torch.equal(got, want)
+
+    def run_frame(frame, o, d, shade):
+        real = tracer.shade_hits
+        tracer.shade_hits = shade
+        try:
+            return frame(o, d)
+        finally:
+            tracer.shade_hits = real
+
+    tex_scene, cam = small_scene(textured=True)
+    tex_scene.bvh = small.bvh       # the same geometry: one build
+    got, entry = {}, None
+    for label, scene, textured in (("spheres184k", large, False),
+                                   ("spheres12k_tex", tex_scene, True)):
+        cfg = tracer.RTConfig(width=RT_SIZE, height=RT_SIZE, bounces=2,
+                              shadows=True, textured=textured)
+        frame, (o, d) = tracer.make_frame_fn(scene, cam, cfg)
+        calls = []
+
+        def recorder(scene_arrays, cfg, occluded, *args, bounce=0):
+            calls.append((scene_arrays, occluded, (*args, bounce)))
+            return cuda_rt.shade_hits(scene_arrays, cfg, occluded, *args,
+                                      bounce)
+
+        cuda_rt.reset_launch_counts()
+        img = run_frame(frame, o, d, recorder)
+        torch.cuda.synchronize()
+        launches = cuda_rt.launch_counts["shade_hits"]
+        if launches != 3 or len(calls) != 3:
+            raise AssertionError(f"{label}: {launches} shade launches, "
+                                 f"{len(calls)} calls, expected 3")
+        # the frame, and the frame shaded by the twin
+        img_twin = run_frame(frame, o, d, cuda_rt.shade_hits_reference)
+        if not same(img, img_twin):
+            raise AssertionError(f"{label}: the frame differs from the "
+                                 f"twin-shaded frame")
+        timing = []
+        for i, (scene_arrays, occluded, args) in enumerate(calls):
+            asked = {}
+
+            def asking(key, occluded=occluded, asked=asked):
+                def occ(so, sd, t_max):
+                    asked[key] = (so.clone(), sd.clone())
+                    return occluded(so, sd, t_max)
+                return occ
+
+            outs = [fn(scene_arrays, cfg, asking(key), *args) for key, fn in (
+                ("kernel", cuda_rt.shade_hits),
+                ("twin", cuda_rt.shade_hits_reference))]
+            torch.cuda.synchronize()
+            for name, g, w in zip(("rgb", "hit", "pt", "n"), *outs):
+                if not same(g, w):
+                    raise AssertionError(f"{label} call {i}: {name} differs "
+                                         f"from the twin's")
+            for g, w in zip(asked["kernel"], asked["twin"]):
+                if not same(g, w):
+                    raise AssertionError(f"{label} call {i}: the shadow rays "
+                                         f"differ from the twin's")
+            # timing with the query's answer replayed: the kernel and the
+            # torch.where after it, and the twin's launches
+            blocked = occluded(*asked["kernel"], 1e8)
+
+            def replay(so, sd, t_max, blocked=blocked):
+                return blocked
+
+            def kernel(scene_arrays=scene_arrays, args=args, replay=replay):
+                return cuda_rt.shade_hits(scene_arrays, cfg, replay, *args)
+
+            def twin(scene_arrays=scene_arrays, args=args, replay=replay):
+                return cuda_rt.shade_hits_reference(scene_arrays, cfg,
+                                                    replay, *args)
+
+            R, prim = args[0].shape[0], args[2]
+            rows = int(torch.unique(prim.clamp(min=0)).numel())
+            tex = scene_arrays.get("texture")
+            timing.append({
+                "rays": R, "hits": int((prim >= 0).sum()), "rows": rows,
+                "kernel_ms": median_ms(kernel), "graph_ms": graph_ms(kernel),
+                "plain_ms": median_ms(twin),
+                "bound": bound(R * SHADE_RAY_BYTES
+                               + rows * scene_arrays["rec"].shape[1] * 4
+                               + (0 if tex is None else tex.numel() * 4),
+                               R * (SHADE_OPS + textured * SHADE_TEX_OPS))})
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                frame(o, d)
+            torch.cuda.synchronize()
+        profiled = sum(getattr(e, "device_time_total", 0.0)
+                       for e in prof.key_averages()
+                       if "shade_hits_kernel" in e.key) / 5 / 1e3
+        sums = {k: sum(c[k] for c in timing)
+                for k in ("kernel_ms", "graph_ms", "plain_ms")}
+        got[label] = {
+            "launches": launches, "calls": timing,
+            "frame": {**sums, "profiler_kernel_ms": profiled,
+                      "bound_ms": sum(c["bound"]["bound_ms"]
+                                      for c in timing)},
+            "frame_ms": median_ms(lambda: frame(o, d)),
+            "frame_twin_ms": median_ms(lambda: run_frame(
+                frame, o, d, cuda_rt.shade_hits_reference)),
+            "image_equal_to_twin_frame": True}
+        if textured:
+            first = timing[0]
+            entry = {"name": "rt_shade_hits", "route": "cuda",
+                     "source": "skybox_rt_tpu_torch/csrc/rt_shade.cu",
+                     "replaces": None,   # XLA's fusion of the JAX shade_hits
+                     "launches": launches, "max_abs_err": 0,
+                     "ms": first["kernel_ms"], "graph_ms": first["graph_ms"],
+                     "plain_ms": first["plain_ms"], **first["bound"],
+                     "frame_ms": sums["kernel_ms"],
+                     "frame_graph_ms": sums["graph_ms"],
+                     "library_ms": None}
+    phase("rt_shade", card=card, reps=REPS, equal=True, **got)
+    return entry
 
 
 # float operations of one step of the differentiable pipeline's visibility
@@ -2341,8 +2504,9 @@ def config3_phases(dev, card) -> list:
         torch.cuda.synchronize()
         got_counts = dict(cuda_rt.launch_counts)
         key = entry["name"].removeprefix("rt_")
-        # the worklist engine's every query runs its prepass kernel first
-        want_counts = {key: 6}
+        # the worklist engine's every query runs its prepass kernel first;
+        # each of the three shades is one kernel
+        want_counts = {key: 6, "shade_hits": 3}
         if engine == "pallas_worklist":
             want_counts["active_block_lists"] = 6
         if got_counts != want_counts:
@@ -3242,7 +3406,8 @@ def parallel_phase(dev, card, raster, northstar, small) -> dict:
             torch.cuda.synchronize()
             counts = tuple(cuda_rt.launch_counts[n] for n in names)
             collectives = dict(overlap.collective_counts)
-            if counts != (3, 3) or sum(cuda_rt.launch_counts.values()) != 6:
+            if counts != (3, 3) or cuda_rt.launch_counts["shade_hits"] != 3 \
+                    or sum(cuda_rt.launch_counts.values()) != 9:
                 raise AssertionError(f"{label} launched "
                                      f"{dict(cuda_rt.launch_counts)}")
             if collectives != {"all_gather": 1}:
@@ -3514,7 +3679,9 @@ def main() -> int:
 
     large_entries, northstar = rt_phases(dev, card)
     small_entries, small = small_phases(dev, card)
-    rt_entries = large_entries + small_entries + diff_phases(dev, card)
+    shade_entry = shade_phase(dev, card, northstar["scene"], small["scene"])
+    rt_entries = (large_entries + small_entries + [shade_entry]
+                  + diff_phases(dev, card))
     config3_entries, flat_bounce = config3_phases(dev, card)
     next(e for e in rt_entries if e["name"] == "rt_closest_hit_flat")[
         "bounce1_sample"] = flat_bounce

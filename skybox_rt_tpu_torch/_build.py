@@ -8,7 +8,8 @@ started together, and the objects are linked into one library.  It lands in
 flags, so an edited source rebuilds.  Flags keep IEEE float32 division and no
 FMA contraction, which the exact-int raster path (csrc/raster_visibility.cu),
 the ray queries' agreement with their plain versions (csrc/rt_bvh.cu,
-csrc/rt_clustered.cu, csrc/rt_streamed.cu), the float visibility's
+csrc/rt_clustered.cu, csrc/rt_streamed.cu) and the hit shading's
+(csrc/rt_shade.cu), the float visibility's
 (csrc/diff_visibility.cu), the row accumulation's pinned sum order
 (csrc/diff_accumulate.cu) and the matrix product's pinned arithmetic
 (csrc/apps_sgemm.cu, whose fused multiply-adds are explicit __fmaf_rn)
@@ -69,6 +70,11 @@ _SIGNATURES = {
                                       + [_P] * 5,
     # o d tmax aabb, NB R front_to_back, lists counts, the stream
     "skybox_rt_active_block_lists": [_P] * 4 + [_I] * 3 + [_P] * 3,
+    # o d prim t u v rec tex, rec_width TH TW, ambient, light_dir (3),
+    # light_color (3), park (3), offset, R, pt n hit rgb dark sh_o sh_d, the
+    # stream
+    "skybox_rt_shade_hits": [_P] * 8 + [_I] * 3 + [_F] * 11 + [_I]
+                            + [_P] * 8,
     # edges z tile_pids origins out, T M tile_logsize depth_test, the stream
     "skybox_diff_visibility_hard": [_P] * 5 + [_I] * 4 + [_P],
     # idx val scratch out, N R C S L max_long, the scratch's words, the

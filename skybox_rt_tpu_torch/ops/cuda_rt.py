@@ -1,8 +1,12 @@
-"""Ray queries: the CUDA kernels and their plain torch versions.
+"""Ray queries and hit shading: the CUDA kernels and their plain torch
+versions.
 
 Counterpart of skybox_rt_tpu.ops.pallas_rt.  Eight kernels replace Pallas TPU
 kernels of that module, and a ninth the worklist query's prepass; each source
-says how a ray walks its structure and what bounds it:
+says how a ray walks its structure and what bounds it.  A tenth,
+:func:`shade_hits` (csrc/rt_shade.cu), shades a hit batch for rt.tracer: it
+replaces no TPU kernel (the JAX package's shade_hits is plain jnp that XLA
+fuses), and takes the place of some 60 plain torch launches a call.
 
   ===========================  ==========================  ====================
   wrapper                      replaces (pallas_rt)        source
@@ -73,7 +77,9 @@ import math
 import numpy as np
 import torch
 
-from ..rt import intersect
+from ..diff.pipeline import sample_texture_bilinear
+from ..rt import intersect, tracer
+from ..utils.tracing import stage
 
 T_MIN = 1e-4
 #: deepest AABB pyramid the BVH-block kernels' level table holds
@@ -110,10 +116,17 @@ PREPASS_PAIRS = 1 << 24
 #: (csrc/rt_streamed.cu PREPASS_MAX_BLOCKS)
 PREPASS_MAX_BLOCKS = 227 * 1024 // 8
 
+#: record row width of rt.tracer.scene_shade_arrays, untextured and textured
+#: (:func:`shade_hits`)
+SHADE_RECORD_WIDTH = {False: 21, True: 27}
+#: a shadow ray starts this far along the hit's normal (:func:`shade_hits`)
+SHADOW_OFFSET = 1e-3
+
 #: Kernel launches since the last reset, keyed by kernel (closest_hit_bvh,
 #: any_hit_bvh, closest_hit_bvh_after, closest_hit_clustered,
 #: any_hit_clustered, closest_hit_flat, closest_hit_streamed,
-#: closest_hit_worklist, active_block_lists; a kernel not launched reads 0): a run reads them to show that its main
+#: closest_hit_worklist, active_block_lists, shade_hits; a kernel not
+#: launched reads 0): a run reads them to show that its main
 #: path went through the kernels.  Only :func:`_launch` adds to them.
 launch_counts: collections.Counter = collections.Counter()
 
@@ -1065,6 +1078,13 @@ def _check_on_card(dev, what, tensors):
     shape, dtype) of ``tensors`` lies there too, contiguous, as stated."""
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    _check_tensors(dev, what, tensors, contiguous=True)
+
+
+def _check_tensors(dev, what, tensors, contiguous=False):
+    """Raises unless every (name, tensor, shape, dtype) of ``tensors`` lies
+    on the rays' device ``dev`` with that shape and dtype (and contiguous,
+    if asked)."""
     for name, t, shape, dtype in tensors:
         if t.device != dev:
             raise ValueError(f"{what}[{name!r}] is on {t.device}, the rays "
@@ -1072,7 +1092,7 @@ def _check_on_card(dev, what, tensors):
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{what}[{name!r}] is {tuple(t.shape)} "
                              f"{t.dtype}, expected {shape} {dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{what}[{name!r}] must be contiguous")
 
 
@@ -1457,3 +1477,122 @@ def closest_hit_worklist(orig, direction, stream, t_max=None,
             NB, stream["num_prims"], stream["tri_block"], t_min, R,
             STREAM_LANE_SWITCH, _ptr(prim), _ptr(t), _ptr(u), _ptr(v))
     return prim, t, u, v
+
+
+def _shade_arrays(scene_arrays, cfg):
+    """The record table and the texture (None untextured) of
+    rt.tracer.scene_shade_arrays, with the (name, tensor, shape, dtype) rows
+    they must match: a (P >= 1, 21 | 27) float32 table and a (TH, TW, 4)
+    float32 texture, present exactly when ``cfg.textured``."""
+    rec, tex = scene_arrays["rec"], scene_arrays.get("texture")
+    if (tex is not None) != cfg.textured:
+        raise ValueError(f"scene_arrays {'hold' if tex is not None else 'lack'}"
+                         f" a texture, the config has textured="
+                         f"{cfg.textured}")
+    if rec.ndim != 2 or rec.shape[0] == 0:
+        raise ValueError(f"scene_arrays['rec'] is {tuple(rec.shape)}, "
+                         f"expected (P >= 1, C)")
+    spec = [("rec", rec, (rec.shape[0], SHADE_RECORD_WIDTH[cfg.textured]),
+             torch.float32)]
+    if tex is not None:
+        if tex.ndim != 3 or 0 in tex.shape[:2]:
+            raise ValueError(f"scene_arrays['texture'] is {tuple(tex.shape)},"
+                             f" expected (TH >= 1, TW >= 1, 4)")
+        spec.append(("texture", tex, (tex.shape[0], tex.shape[1], 4),
+                     torch.float32))
+    return rec, tex, spec
+
+
+def shade_hits(scene_arrays, cfg, occluded, orig, direction, prim, t, u, v,
+               bounce: int = 0):
+    """Lambert + optional texture + optional shadow for a hit batch: rays
+    (R, 3) float32, their closest hits prim (R,) int32 [-1 = miss] and t, u,
+    v (R,) float32.  ``scene_arrays`` is rt.tracer.scene_shade_arrays' dict,
+    ``cfg`` the rt.tracer.RTConfig it was built for; with ``cfg.shadows``
+    the shadow query occluded(o, d, 1e8) -> (R,) bool runs in the stage
+    ``rt.occlusion`` of ``bounce``.
+
+    A CUDA tensor launches csrc/rt_shade.cu once before the query (its
+    textured form where the arrays hold a texture) and takes the blocked
+    rays' colour with one torch.where after it; a CPU tensor runs
+    :func:`shade_hits_reference`.  Returns (rgb (R, 3), hit (R,) bool,
+    hit point (R, 3), normal (R, 3)), bit for bit the same on both."""
+    _check_rays(orig, direction)
+    R, dev = orig.shape[0], orig.device
+    rec, tex, arrays = _shade_arrays(scene_arrays, cfg)
+    _check_tensors(dev, "hits", [
+        ("prim", prim, (R,), torch.int32), ("t", t, (R,), torch.float32),
+        ("u", u, (R,), torch.float32), ("v", v, (R,), torch.float32)])
+    if dev.type == "cpu":
+        _check_tensors(dev, "scene_arrays", arrays)
+        return shade_hits_reference(scene_arrays, cfg, occluded, orig,
+                                    direction, prim, t, u, v, bounce)
+    _check_on_card(dev, "scene_arrays", arrays)
+    o, d = orig.contiguous(), direction.contiguous()
+    prim, t, u, v = (x.contiguous() for x in (prim, t, u, v))
+    pt, n, rgb = (torch.empty((R, 3), dtype=torch.float32, device=dev)
+                  for _ in range(3))
+    hit = torch.empty((R,), dtype=torch.bool, device=dev)
+    dark = sh_o = sh_d = None
+    if cfg.shadows:
+        dark, sh_o, sh_d = (torch.empty((R, 3), dtype=torch.float32,
+                                        device=dev) for _ in range(3))
+    th, tw = (tex.shape[0], tex.shape[1]) if tex is not None else (0, 0)
+    _launch("skybox_rt_shade_hits", dev,
+            _ptr(o), _ptr(d), _ptr(prim), _ptr(t), _ptr(u), _ptr(v),
+            _ptr(rec), _ptr(tex), rec.shape[1], th, tw, cfg.ambient,
+            *cfg.light_dir, *cfg.light_color, *tracer.PARK_O,
+            SHADOW_OFFSET, R, _ptr(pt), _ptr(n), _ptr(hit), _ptr(rgb),
+            _ptr(dark), _ptr(sh_o), _ptr(sh_d))
+    if cfg.shadows:
+        with stage("rt.occlusion", stream=True, bounce=bounce, width=R):
+            blocked = occluded(sh_o, sh_d, 1e8)
+        rgb = torch.where(blocked[:, None], dark, rgb)
+    return rgb, hit, pt, n
+
+
+def shade_hits_reference(scene_arrays, cfg, occluded, o, d, prim, t, u, v,
+                         bounce: int = 0):
+    """The plain torch twin of :func:`shade_hits`: the kernel's arithmetic
+    in the same order.  The CPU route, and what the card's tests and
+    chip_smoke.py hold the kernel to."""
+    dev = o.device
+    hit = prim >= 0
+    pt = o + d * torch.where(hit, t, torch.zeros_like(t))[..., None]
+    # ONE packed record row per hit instead of six per-corner vertex
+    # gathers (normals + colors [+ uvs] x 3 corners)
+    r = scene_arrays["rec"][prim.clamp(min=0).long()]      # (R, 21 | 27)
+    R = r.shape[0]
+    n = tracer._interp3(r[:, 0:9].reshape(R, 3, 3), u, v)
+    n = n / tracer._norm3(n).clamp(min=1e-20)
+    # two-sided shading: flip normal against the incoming ray
+    n = torch.where(tracer._dot3(n, d) > 0, -n, n)
+
+    albedo = tracer._interp3(r[:, 9:21].reshape(R, 3, 4), u, v)[..., :3]
+    if cfg.textured:
+        uv = tracer._interp3(r[:, 21:27].reshape(R, 3, 2), u, v)
+        texel = sample_texture_bilinear(scene_arrays["texture"],
+                                        uv[..., 0], uv[..., 1])
+        albedo = albedo * texel[..., :3]
+
+    ldir = tracer._vec(cfg.light_dir, dev)
+    ldir = ldir / tracer._norm3(ldir)
+    ndotl = tracer._dot3(n, ldir)[..., 0].clamp(min=0.0)
+
+    if cfg.shadows:
+        # park shadow rays of non-hit pixels AND of terminator points
+        # (ndotl <= 0: occlusion cannot change their shading — the Lambert
+        # clamp already zeroed them).  Parked rays leave the hierarchy at
+        # its top level.
+        need = hit & (ndotl > 0.0)
+        sh_o = torch.where(need[..., None], pt + n * SHADOW_OFFSET,
+                           tracer._vec(tracer.PARK_O, dev))
+        sh_d = torch.broadcast_to(ldir, sh_o.shape).contiguous()
+        with stage("rt.occlusion", stream=True, bounce=bounce,
+                   width=sh_o.shape[0]):
+            blocked = occluded(sh_o, sh_d, 1e8)
+        ndotl = torch.where(blocked, torch.zeros_like(ndotl), ndotl)
+
+    lc = tracer._vec(cfg.light_color, dev)
+    rgb = albedo * (cfg.ambient + ndotl[..., None] * lc)
+    return rgb, hit, pt, n

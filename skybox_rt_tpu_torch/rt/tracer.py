@@ -23,7 +23,6 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..diff.pipeline import sample_texture_bilinear
 from ..utils.tracing import count, stage
 from . import bvh as bvh_mod
 from . import intersect
@@ -380,48 +379,15 @@ def make_intersectors(scene: RTScene, cfg: RTConfig, device=None):
 def shade_hits(scene_arrays, cfg: RTConfig, occluded, o, d, prim, t, u, v,
                bounce: int = 0):
     """Lambert + optional texture + optional shadow for a hit batch; the
-    shadow query runs in the stage ``rt.occlusion`` of ``bounce``.
+    shadow query runs in the stage ``rt.occlusion`` of ``bounce``.  On the
+    card one kernel before the query and one torch.where after it
+    (ops.cuda_rt.shade_hits); on the CPU its plain twin.
 
     Returns (rgb (R,3), hit_mask (R,), hit_point, normal)."""
-    dev = o.device
-    hit = prim >= 0
-    pt = o + d * torch.where(hit, t, torch.zeros_like(t))[..., None]
-    # ONE packed record row per hit instead of six per-corner vertex
-    # gathers (normals + colors [+ uvs] x 3 corners)
-    r = scene_arrays["rec"][prim.clamp(min=0).long()]      # (R, 21 | 27)
-    R = r.shape[0]
-    n = _interp3(r[:, 0:9].reshape(R, 3, 3), u, v)
-    n = n / _norm3(n).clamp(min=1e-20)
-    # two-sided shading: flip normal against the incoming ray
-    n = torch.where(_dot3(n, d) > 0, -n, n)
+    from ..ops import cuda_rt
 
-    albedo = _interp3(r[:, 9:21].reshape(R, 3, 4), u, v)[..., :3]
-    if cfg.textured:
-        uv = _interp3(r[:, 21:27].reshape(R, 3, 2), u, v)
-        texel = sample_texture_bilinear(scene_arrays["texture"],
-                                        uv[..., 0], uv[..., 1])
-        albedo = albedo * texel[..., :3]
-
-    ldir = _vec(cfg.light_dir, dev)
-    ldir = ldir / _norm3(ldir)
-    ndotl = _dot3(n, ldir)[..., 0].clamp(min=0.0)
-
-    if cfg.shadows:
-        # park shadow rays of non-hit pixels AND of terminator points
-        # (ndotl <= 0: occlusion cannot change their shading — the Lambert
-        # clamp already zeroed them).  Parked rays leave the hierarchy at
-        # its top level.
-        need = hit & (ndotl > 0.0)
-        sh_o = torch.where(need[..., None], pt + n * 1e-3, _vec(PARK_O, dev))
-        sh_d = torch.broadcast_to(ldir, sh_o.shape).contiguous()
-        with stage("rt.occlusion", stream=True, bounce=bounce,
-                   width=sh_o.shape[0]):
-            blocked = occluded(sh_o, sh_d, 1e8)
-        ndotl = torch.where(blocked, torch.zeros_like(ndotl), ndotl)
-
-    lc = _vec(cfg.light_color, dev)
-    rgb = albedo * (cfg.ambient + ndotl[..., None] * lc)
-    return rgb, hit, pt, n
+    return cuda_rt.shade_hits(scene_arrays, cfg, occluded, o, d, prim, t, u,
+                              v, bounce)
 
 
 def scene_shade_arrays(scene: RTScene, cfg: RTConfig, device=None) -> dict:
