@@ -42,6 +42,7 @@ import dataclasses
 
 import torch
 
+from ..utils import tracing
 from . import cuda_texgrad, cuda_vis
 from .cuda_vis import barycentrics as _barycentrics
 from .cuda_vis import tile_coords as _tile_coords
@@ -140,8 +141,13 @@ def sample_texture_bilinear(tex, u, v):
 
 def prim_setup(params, indices, cfg: DiffRenderConfig):
     """Differentiable geometry processing: vertices -> per-prim raster data
-    (gradients flow through the edge coefficients back to the positions).
-    Returns a dict of (P, ...) tensors."""
+    (gradients flow through the edge coefficients back to the positions),
+    in the stage ``diff.prim_setup``.  Returns a dict of (P, ...) tensors."""
+    with tracing.stage("diff.prim_setup"):
+        return _prim_setup(params, indices, cfg)
+
+
+def _prim_setup(params, indices, cfg: DiffRenderConfig):
     pos = params["pos"]
     color = params["color"]
     P = indices.shape[0]
@@ -361,8 +367,10 @@ def _quad_lerp(q, fx, fy):
 def _accumulate_rows(idx, val, num_rows: int):
     """The transpose of a row gather, Σ val[n] -> row idx[n], in the pinned
     order of ``cuda_texgrad``: the CUDA kernel for CUDA tensors, whatever
-    the table's size, its plain version for CPU tensors."""
-    return cuda_texgrad.accumulate_rows(idx, val, num_rows)
+    the table's size, its plain version for CPU tensors; in the stage
+    ``diff.accumulate``."""
+    with tracing.stage("diff.accumulate", stream=True):
+        return cuda_texgrad.accumulate_rows(idx, val, num_rows)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -530,15 +538,19 @@ def shade_slots(setup, tile_pids, slot_steps, origins,
 def render_tile_set_deferred(setup, tile_pids, origins,
                              cfg: DiffRenderConfig, slots: int = 8,
                              engine: str = "auto"):
-    """Deferred differentiable tile render: visibility + slot shading.
+    """Deferred differentiable tile render: visibility + slot shading, in
+    the stages ``diff.visibility`` and ``diff.shade``.
 
     Equal to render_tile_set when slots >= the scene's max per-pixel write
     count (hard mode: always, with one slot).  Returns
     (tiles (T, ts, ts, 4), max_writes () int32 for overflow monitoring).
     """
-    slot_steps, maxw = visibility_slots(setup, tile_pids, origins, cfg,
-                                        slots, engine=engine)
-    return shade_slots(setup, tile_pids, slot_steps, origins, cfg), maxw
+    with tracing.stage("diff.visibility", stream=True):
+        slot_steps, maxw = visibility_slots(setup, tile_pids, origins, cfg,
+                                            slots, engine=engine)
+    with tracing.stage("diff.shade", stream=True):
+        tiles = shade_slots(setup, tile_pids, slot_steps, origins, cfg)
+    return tiles, maxw
 
 
 def _origins(static, cfg: DiffRenderConfig):

@@ -2,8 +2,8 @@
 package's, on the CPU.
 
 ``diff.optim.fit`` runs each step inside ``tracing.stage("optim_step")``, as
-the JAX package's does, and ``trace_log`` prints only at or under
-SKYBOX_DEBUG.  ``framebuffer_to_rgba`` and ``compare_to_golden`` give the
+the JAX package's does (with the step's own stages inside it), and
+``trace_log`` prints only at or under SKYBOX_DEBUG.  ``framebuffer_to_rgba`` and ``compare_to_golden`` give the
 JAX package's answers on seeded framebuffers; the port's PNG writer (the
 standard library's zlib, no PIL) writes files that PIL reads back to the
 same array.  An OBJ written by either package loads the same arrays in
@@ -48,7 +48,10 @@ def test_fit_runs_each_step_in_a_stage(steps):
     tracing.reset_stages()
     res = optim.fit(loss_fn, {"color": full["color"]}, static, steps=steps)
     report = tracing.stage_report()
-    assert list(report) == ["optim_step"]
+    # the step's stages (diff.optim.FitLoop, the render's prim set-up and
+    # the row accumulations of its backward); report is sorted by name
+    assert list(report) == ["diff.accumulate", "diff.backward", "diff.optim",
+                            "diff.prim_setup", "diff.sync", "optim_step"]
     assert report["optim_step"]["calls"] == steps == len(res.losses)
     assert report["optim_step"]["ms"] > 0
     tracing.reset_stages()
