@@ -170,6 +170,17 @@ exits non-zero, and only a run where every phase passed prints the final
                the skewed and long cases;
                forward, backward and whole step at 512x512 and 1024x1024,
                Mpix/s = size^2 / step time
+ 19b. diff_shade — the hard one-slot shade's two kernels (csrc/diff_shade.cu)
+               at 1024x1024 (T 656, M 56, textured, modulated): each against
+               its twin (diff.cuda_shade.shade_*_reference) bit for bit, the
+               backward twice alike, the image equal to the plain loop's
+               (pipeline.shade_loop) on the card; two steps (check.step)
+               alike, 2 launches a step, their four gradients within 1e-4 of
+               each one's largest magnitude of a step with the plain loop in
+               the kernels' place; CUDA events, median of 20: each kernel
+               around the call and as a graph's replay beside its bytes
+               bound, the plain loop's forward and its autograd backward
+               (its two #5 calls included)
 
   20. rt_after_vs_plain — the next-hit-after kernel against its plain torch
                version, bit for bit (``rays_differ`` must be 0): the check
@@ -1948,6 +1959,180 @@ def diff_phases(dev, card) -> list:
                               for n in ACC_STRESS}}]
 
 
+# float operations a live pixel of the hard one-slot shade kernels
+# (csrc/diff_shade.cu), counted from their bodies, textured and modulated:
+# forward, three edge functions (12), den, |den| and its select (4), two
+# divides and b2 (4), four colour and two uv interpolations (30), two taps
+# (remainder, multiply, subtract, floor, fraction: 10), the bilinear lerps
+# (36), the modulation (4) and the composite (12): 112; the backward repeats
+# them and adds the texel's and colour's gradients (8), the sampler's
+# backward (48 + 6 + 4 weights + 16 rows), the corners' rows and the
+# barycentrics' gradients (18 + 24 + 12), their chain to the edges (12) and
+# the edge rows (6), and one add a record column to the slot's sum (27)
+DIFF_SHADE_FWD_OPS = 112
+DIFF_SHADE_BWD_OPS = 112 + 181
+
+
+def diff_shade_phase(dev, card) -> dict:
+    """Phase 19b: the hard one-slot shade (csrc/diff_shade.cu, launched by
+    diff/pipeline._ShadeHard) at the fit cell's shapes, the 1024x1024
+    training scene (T = 656, M = 56, textured, modulated).  Both kernels
+    against their twins (diff/cuda_shade.shade_*_reference) bit for bit,
+    the backward twice alike; the image against the plain loop
+    (pipeline.shade_loop) on the card bit for bit; a step's four gradients
+    through the kernels against the same step with the plain loop in their
+    place, within 1e-4 of each one's largest magnitude, and two steps
+    alike.  Then CUDA events, median of 20: each kernel around the call and
+    as a CUDA graph's replay, beside its bytes bound, and the plain loop's
+    forward and backward (autograd's: the one-hot product and the two #5
+    calls included, which the kernel path makes outside the kernel).
+    Returns the kernels line's entry."""
+    from skybox_rt_tpu_torch.diff import check, cuda_shade, pipeline
+
+    def same(got, want):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            return False
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        return torch.equal(got, want)
+
+    params, static, cfg = check.train_scene(DIFF_SIZE)
+    params, static = check.to_device(params, static, dev)
+    tls = cfg.tile_logsize
+    ts = 1 << tls
+    with torch.no_grad():
+        setup = pipeline.prim_setup(params, static["indices"], cfg)
+        origins = pipeline._origins(static, cfg).to(torch.int32)
+        steps = pipeline.visibility_slots(setup, static["tile_pids"], origins,
+                                          cfg)[0][..., 0].contiguous()
+        P = setup["edges"].shape[0]
+        rec = torch.cat([setup["edges"].reshape(P, 9),
+                         setup["color"].reshape(P, 12),
+                         setup["uv"].reshape(P, 6)], 1)
+        tex_quad = pipeline._quad_texture(params["tex"].detach()).contiguous()
+    pids = static["tile_pids"]
+    (T, M), C = pids.shape, rec.shape[1]
+    g = torch.randn((T, ts, ts, 4), device=dev,
+                    generator=torch.Generator(dev).manual_seed(19))
+    args = (rec, tex_quad, pids, steps, origins)
+
+    # the kernels against their twins, bit for bit; the backward twice
+    cuda_shade.reset_launch_count()
+    img = cuda_shade.shade_forward(*args, tls, cfg.modulate, cfg.background)
+    back = cuda_shade.shade_backward(*args, g, tls, cfg.modulate)
+    again = cuda_shade.shade_backward(*args, g, tls, cfg.modulate)
+    torch.cuda.synchronize()
+    if cuda_shade.launch_count != 3:
+        raise AssertionError(f"3 calls launched {cuda_shade.launch_count}")
+    want_img = cuda_shade.shade_forward_reference(*args, tls, cfg.modulate,
+                                                  cfg.background)
+    want_back = cuda_shade.shade_backward_reference(*args, g, tls,
+                                                    cfg.modulate)
+    for name, got, want in (("image", img, want_img),
+                            *zip(("grec", "rows", "anchor"), back,
+                                 want_back)):
+        if not same(got, want):
+            raise AssertionError(
+                f"diff_shade {name} != twin on "
+                f"{int((got != want).sum())} of {got.numel()} values")
+    for name, a, b in zip(("grec", "rows", "anchor"), back, again):
+        if not same(a, b):
+            raise AssertionError(f"two backward launches differ in {name}")
+    with torch.no_grad():
+        plain = pipeline.shade_loop(pipeline.gather_rows(rec, pids),
+                                    tex_quad, steps[..., None], origins, cfg)
+    if not same(img, plain):
+        raise AssertionError(
+            f"diff_shade image != plain loop on "
+            f"{int((img != plain).sum())} of {img.numel()} values")
+
+    # a whole step through the kernels and through the plain loop
+    def step_grads():
+        loss, out, _ = check.step(params, static, cfg)
+        return out, {k: p.grad.clone() for k, p in params.items()}
+
+    cuda_shade.reset_launch_count()
+    out1, grads1 = step_grads()
+    out2, grads2 = step_grads()
+    torch.cuda.synchronize()
+    step_launches = cuda_shade.launch_count
+    if step_launches != 4:
+        raise AssertionError(f"two steps launched {step_launches}")
+    real_apply = pipeline._ShadeHard.apply
+    pipeline._ShadeHard.apply = lambda rec, tq, pids, s, o, c: \
+        pipeline.shade_loop(pipeline.gather_rows(rec, pids), tq,
+                            s[..., None], o, c)
+    try:
+        out_plain, grads_plain = step_grads()
+    finally:
+        pipeline._ShadeHard.apply = real_apply
+    grad_err = {}
+    for k in check.PARAM_NAMES:
+        if not same(grads1[k], grads2[k]):
+            raise AssertionError(f"two steps' gradients of {k} differ")
+        scale = float(grads_plain[k].abs().max())
+        grad_err[k] = float((grads1[k] - grads_plain[k]).abs().max()) / scale
+        if not grad_err[k] <= 1e-4:
+            raise AssertionError(f"gradient of {k} off the plain loop's by "
+                                 f"{grad_err[k]} of its largest magnitude")
+    if not same(out1, out2) or not same(out1, out_plain):
+        raise AssertionError("the step's image differs")
+
+    # timing (printed, not judged)
+    live = int((steps >= 0).sum())
+    px = steps.numel()
+    fwd_bytes = nbytes(steps, origins, rec, pids, tex_quad) + 16 * px
+    bwd_bytes = nbytes(steps, origins, g, rec, pids, tex_quad, *back)
+    timing = {
+        "forward": {
+            "kernel_ms": median_ms(lambda: cuda_shade.shade_forward(
+                *args, tls, cfg.modulate, cfg.background)),
+            "graph_ms": graph_ms(lambda: cuda_shade.shade_forward(
+                *args, tls, cfg.modulate, cfg.background)),
+            "bound": bound(fwd_bytes, live * DIFF_SHADE_FWD_OPS)},
+        "backward": {
+            "kernel_ms": median_ms(lambda: cuda_shade.shade_backward(
+                *args, g, tls, cfg.modulate)),
+            "graph_ms": graph_ms(lambda: cuda_shade.shade_backward(
+                *args, g, tls, cfg.modulate)),
+            "bound": bound(bwd_bytes, live * DIFF_SHADE_BWD_OPS)}}
+    leaf_rec = rec.clone().requires_grad_(True)
+    leaf_tq = tex_quad.clone().requires_grad_(True)
+
+    def plain_forward():
+        return pipeline.shade_loop(pipeline.gather_rows(leaf_rec, pids),
+                                   leaf_tq, steps[..., None], origins, cfg)
+
+    timing["forward"]["plain_ms"] = median_ms(plain_forward)
+    bwd = []
+    for _ in range(REPS):
+        leaf_rec.grad = leaf_tq.grad = None
+        out = plain_forward()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        out.backward(g)
+        t1.record()
+        t1.synchronize()
+        bwd.append(t0.elapsed_time(t1))
+    timing["backward"]["plain_ms"] = float(np.median(bwd))
+    phase("diff_shade", card=card, reps=REPS, tiles=T, M=M, C=C,
+          pixels=px, live_pixels=live, equal=True,
+          backward_bit_identical_twice=True, step_launches=step_launches,
+          step_grad_rel_err=grad_err, **timing)
+    fwd, bwd_t = timing["forward"], timing["backward"]
+    return {"name": "diff_shade", "route": "cuda",
+            "source": "skybox_rt_tpu_torch/csrc/diff_shade.cu",
+            "replaces": None,   # XLA's fusion of the JAX shade_slots
+            "launches": step_launches, "max_abs_err": 0,
+            "ms": fwd["kernel_ms"], "graph_ms": fwd["graph_ms"],
+            "plain_ms": fwd["plain_ms"], **fwd["bound"],
+            "backward_ms": bwd_t["kernel_ms"],
+            "backward_graph_ms": bwd_t["graph_ms"],
+            "backward_plain_ms": bwd_t["plain_ms"],
+            "backward_bound_ms": bwd_t["bound"]["bound_ms"],
+            "library_ms": None, "tiles": T, "M": M}
+
+
 C3_GOLDEN_SIZE = 128    # the size of the committed JAX golden of config 3
 C3_SIZE = 1024          # the full-width config-3 frame
 
@@ -3681,7 +3866,7 @@ def main() -> int:
     small_entries, small = small_phases(dev, card)
     shade_entry = shade_phase(dev, card, northstar["scene"], small["scene"])
     rt_entries = (large_entries + small_entries + [shade_entry]
-                  + diff_phases(dev, card))
+                  + diff_phases(dev, card) + [diff_shade_phase(dev, card)])
     config3_entries, flat_bounce = config3_phases(dev, card)
     next(e for e in rt_entries if e["name"] == "rt_closest_hit_flat")[
         "bounce1_sample"] = flat_bounce

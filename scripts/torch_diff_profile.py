@@ -13,10 +13,11 @@ line each for:
                    and Mpix/s = size^2 / step;
   * ``profile``  — one step under torch.profiler (CPU + CUDA activities):
                    device-busy milliseconds (sum of device kernel time), its
-                   share of the step's host-clock time, the two hand-written
-                   kernels' part of it (diff_visibility, and the passes of
-                   diff_accumulate over its five calls, also pass by pass
-                   with their launch counts), the count of
+                   share of the step's host-clock time, the hand-written
+                   kernels' part of it (diff_visibility, diff_shade's forward
+                   and backward, and the passes of diff_accumulate over its
+                   five calls, also pass by pass with their launch counts),
+                   the count of
                    device kernels, and the ten largest by summed device time
                    (a first profiled step is thrown away);
   * ``stages``   — CUDA-event milliseconds of the step's stages driven one by
@@ -24,8 +25,10 @@ line each for:
                    kernel, the shade forward (shade_slots, assembly, loss),
                    the whole backward, each class of _accumulate_rows (texel,
                    record, vertex tables; inputs captured from a real
-                   backward), and the one-hot product of gather_tile_rows'
-                   backward.
+                   backward), the one-slot shade's two kernels
+                   (diff.cuda_shade), and beside them the plain loop's
+                   one-hot product of gather_tile_rows' backward, which the
+                   hard mode no longer runs.
 
 If the profiler reports no device time, ``profile`` says so and the stage
 timings stand alone.  Every line carries the card's name and power limit.
@@ -46,7 +49,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import median_ms, nvidia_smi  # noqa: E402
-from skybox_rt_tpu_torch.diff import check, cuda_texgrad, pipeline  # noqa: E402
+from skybox_rt_tpu_torch.diff import (  # noqa: E402
+    check, cuda_shade, cuda_texgrad, pipeline)
 
 
 def event_ms(fn):
@@ -128,6 +132,10 @@ def main(argv) -> int:
     # of csrc/diff_accumulate.cu: diff_accumulate::count_kernel(...), ...
     ours = {name: sum(ms for k, ms, _ in rows if part in k)
             for name, part in (("diff_visibility", "diff_visibility_kernel"),
+                               ("diff_shade_forward",
+                                "diff_shade_forward_kernel"),
+                               ("diff_shade_backward",
+                                "diff_shade_backward_kernel"),
                                ("diff_accumulate", "diff_accumulate::"))}
     passes = {}
     for k, ms, n in rows:
@@ -190,6 +198,14 @@ def main(argv) -> int:
     picked = pipeline.gather_tile_rows(rec_tile, slot_steps[..., 0]
                                        .clamp(min=0))
     g = torch.randn_like(picked)
+    P = setup0["edges"].shape[0]
+    shade_args = (
+        torch.cat([setup0["edges"].reshape(P, 9),
+                   setup0["color"].reshape(P, 12),
+                   setup0["uv"].reshape(P, 6)], 1),
+        pipeline._quad_texture(params["tex"].detach()), static["tile_pids"],
+        slot_steps[..., 0].contiguous(), origins.to(torch.int32))
+    g_tiles = torch.randn((*slot_steps.shape[:3], 4), device=origins.device)
 
     stages = {
         "prim_setup_forward": event_ms(setup_only),
@@ -198,7 +214,11 @@ def main(argv) -> int:
         "setup_shade_assemble_loss_forward": event_ms(shade_loss),
         "whole_forward": event_ms(step_loss),
         "whole_backward": backward_ms(step_loss),
-        "onehot_product_backward": event_ms(
+        "shade_forward_kernel": event_ms(lambda: cuda_shade.shade_forward(
+            *shade_args, cfg.tile_logsize, cfg.modulate, cfg.background)),
+        "shade_backward_kernel": event_ms(lambda: cuda_shade.shade_backward(
+            *shade_args, g_tiles, cfg.tile_logsize, cfg.modulate)),
+        "plain_onehot_product_backward": event_ms(
             lambda: picked.backward(g, retain_graph=True)),
     }
     for name, (idx, val, R) in sorted(captured.items()):

@@ -10,7 +10,8 @@ FMA contraction, which the exact-int raster path (csrc/raster_visibility.cu),
 the ray queries' agreement with their plain versions (csrc/rt_bvh.cu,
 csrc/rt_clustered.cu, csrc/rt_streamed.cu) and the hit shading's
 (csrc/rt_shade.cu), the float visibility's
-(csrc/diff_visibility.cu), the row accumulation's pinned sum order
+(csrc/diff_visibility.cu) and slot shading's (csrc/diff_shade.cu), the row
+accumulation's pinned sum order
 (csrc/diff_accumulate.cu) and the matrix product's pinned arithmetic
 (csrc/apps_sgemm.cu, whose fused multiply-adds are explicit __fmaf_rn)
 need; fast math is never used.  The host binning
@@ -80,6 +81,12 @@ _SIGNATURES = {
     # idx val scratch out, N R C S L max_long, the scratch's words, the
     # stream
     "skybox_diff_accumulate_rows": [_P] * 4 + [_I] * 7 + [_P],
+    # rec tile_pids texq steps origins out, T M C tile_logsize TH TW
+    # modulate, the background (4), the stream
+    "skybox_diff_shade_forward": [_P] * 6 + [_I] * 7 + [_F] * 4 + [_P],
+    # rec tile_pids texq steps origins grad grec rows anchor, T M C
+    # tile_logsize TH TW modulate, the stream
+    "skybox_diff_shade_backward": [_P] * 9 + [_I] * 7 + [_P],
     # a b c, m n k, the stream
     "skybox_apps_sgemm": [_P] * 3 + [_I] * 3 + [_P],
 }

@@ -22,10 +22,12 @@ gradients.  The depth test picks a hard winner and gradients flow through
 the winning fragment.
 
 The hand-written kernels on this path: hard-mode visibility
-(``diff/cuda_vis.py``, ``csrc/diff_visibility.cu``) and the row accumulation
-behind every gather's backward (``diff/cuda_texgrad.py``,
-``csrc/diff_accumulate.cu``).  :func:`gather_rows`, :func:`gather_tile_rows`
-and :func:`sample_texture_bilinear_quad` are ``torch.autograd.Function``s
+(``diff/cuda_vis.py``, ``csrc/diff_visibility.cu``), the hard-mode one-slot
+shade, forward and backward (``diff/cuda_shade.py``, ``csrc/diff_shade.cu``,
+through :class:`_ShadeHard`), and the row accumulation behind every
+gather's backward (``diff/cuda_texgrad.py``, ``csrc/diff_accumulate.cu``).
+:func:`gather_rows`, :func:`gather_tile_rows` and
+:func:`sample_texture_bilinear_quad` are ``torch.autograd.Function``s
 with the hand-written backward passes of the JAX package's ``custom_vjp``s:
 no scatter-add with atomics runs in a backward pass, so the gradients of
 ``render_deferred`` are the same bits from run to run.
@@ -43,7 +45,7 @@ import dataclasses
 import torch
 
 from ..utils import tracing
-from . import cuda_texgrad, cuda_vis
+from . import cuda_shade, cuda_texgrad, cuda_vis
 from .cuda_vis import barycentrics as _barycentrics
 from .cuda_vis import tile_coords as _tile_coords
 
@@ -471,6 +473,40 @@ def sample_texture_bilinear_quad(tex_quad, u, v):
     return _SampleQuad.apply(tex_quad, u, v)
 
 
+class _ShadeHard(torch.autograd.Function):
+    """shade_slots' one-slot hard case on CUDA tensors: the forward and
+    backward kernels of ``cuda_shade``.  The forward reads each pixel's
+    record from rec through tile_pids.  The backward recomputes every pixel
+    from the saved inputs, sums the record gradients into the tile's slots
+    in the pinned order (no one-hot product), then hands them to
+    _accumulate_rows through tile_pids (gather_rows' backward) and the
+    texel-quad rows to it as _SampleQuad.backward does."""
+
+    @staticmethod
+    def forward(ctx, rec, tex_quad, tile_pids, steps, origins, cfg):
+        ctx.save_for_backward(rec, tex_quad, tile_pids, steps, origins)
+        ctx.cfg = cfg
+        return cuda_shade.shade_forward(rec, tex_quad, tile_pids, steps,
+                                        origins, cfg.tile_logsize,
+                                        cfg.modulate, cfg.background)
+
+    @staticmethod
+    def backward(ctx, g):
+        rec, tex_quad, tile_pids, steps, origins = ctx.saved_tensors
+        cfg = ctx.cfg
+        grec, rows, anchor = cuda_shade.shade_backward(
+            rec, tex_quad, tile_pids, steps, origins, g.contiguous(),
+            cfg.tile_logsize, cfg.modulate)
+        P, C = rec.shape
+        drec = _accumulate_rows(tile_pids.reshape(-1), grec.reshape(-1, C), P)
+        dtq = None
+        if tex_quad is not None:
+            th, tw = tex_quad.shape[:2]
+            dtq = _accumulate_rows(anchor, rows, th * tw).reshape(
+                tex_quad.shape)
+        return drec, dtq, None, None, None, None
+
+
 def shade_slots(setup, tile_pids, slot_steps, origins,
                 cfg: DiffRenderConfig):
     """Differentiable slot shading and composite, pass 2 of the deferred
@@ -482,25 +518,45 @@ def shade_slots(setup, tile_pids, slot_steps, origins,
 
     Per-prim data is packed into ONE (P, C) record array so each pixel
     does a single row gather, and texels come from the rolled quad table
-    (_quad_texture): one texel gather per bilinear sample.  The slot loop
-    builds ``fb_rgba`` out of place: autograd keeps every slot's input.
+    (_quad_texture): one texel gather per bilinear sample.  Two-level record
+    access: global rows -> per-tile table (its transpose is one small
+    accumulation), then a slot-index gather a pixel.
+
+    Hard mode hands one slot (``slot_steps`` (T, ts, ts, 1)); on CUDA
+    tensors that case is :class:`_ShadeHard`, two kernel launches a step
+    (forward and backward) that take both levels at once, the image of
+    :func:`shade_loop` bit for bit and its gradients to float rounding.  It
+    launches or raises.  CPU tensors, K > 1 and the blended and soft modes
+    run :func:`shade_loop`.
     """
-    ts = 1 << cfg.tile_logsize
     edges = setup["edges"]
     P = edges.shape[0]
     parts = [edges.reshape(P, 9), setup["color"].reshape(P, 12)]
+    tex_quad = None
     if cfg.textured:
         parts.append(setup["uv"].reshape(P, 6))
         tex_quad = _quad_texture(setup["tex"])
     rec = torch.cat(parts, dim=1)                   # (P, 21 | 27)
+    if _is_hard(cfg) and slot_steps.shape[-1] == 1 and slot_steps.is_cuda:
+        return _ShadeHard.apply(
+            rec, tex_quad, tile_pids.to(torch.int32).contiguous(),
+            slot_steps[..., 0].to(torch.int32).contiguous(),
+            origins.to(torch.int32).contiguous(), cfg)
+    return shade_loop(gather_rows(rec, tile_pids), tex_quad, slot_steps,
+                      origins, cfg)
 
-    T = tile_pids.shape[0]
-    # two-level record access: global rows -> per-tile table (its transpose
-    # is one small accumulation), then slot-index gather per pixel
-    # (transpose = batched one-hot product over M)
-    rec_tile = gather_rows(rec, tile_pids)                  # (T, M, C)
+
+def shade_loop(rec_tile, tex_quad, slot_steps, origins,
+               cfg: DiffRenderConfig):
+    """shade_slots' plain torch body on the tile records rec_tile (T, M, C)
+    and the quad table (None untextured): a slot at a time, a row gather a
+    pixel (transpose: gather_tile_rows' batched one-hot product over M).
+    The loop builds ``fb_rgba`` out of place: autograd keeps every slot's
+    input.  It is the hard one-slot kernels' plain version too."""
+    ts = 1 << cfg.tile_logsize
+    T = rec_tile.shape[0]
     xs, ys = _tile_coords(ts, origins)
-    fb_rgba = _background(cfg, (T, ts, ts), edges.device)
+    fb_rgba = _background(cfg, (T, ts, ts), rec_tile.device)
     for k in range(slot_steps.shape[-1]):
         s = slot_steps[..., k]                      # (T, ts, ts)
         live = s >= 0
