@@ -195,8 +195,11 @@ def camera_from_reference(obj) -> tracer.Camera:
 def rt_config_from_reference(obj) -> tracer.RTConfig:
     """A JAX-package RTConfig -> the port's, field by field.  An engine name
     the port has no kernels for is kept, and fails where the intersectors
-    are made."""
-    return _copy_fields(tracer.RTConfig, obj)
+    are made.  ``use_bvh=False`` becomes engine "brute", what the JAX
+    package renders for it; the JAX compaction fields are scheduling and
+    have no counterpart."""
+    return _copy_fields(tracer.RTConfig, obj,
+                        engine=obj.engine if obj.use_bvh else "brute")
 
 
 def diff_params_from_reference(params, device=None) -> dict:

@@ -78,7 +78,7 @@ import numpy as np
 import torch
 
 from ..diff.pipeline import sample_texture_bilinear
-from ..rt import intersect, tracer
+from ..rt import intersect
 from ..utils.tracing import stage
 
 T_MIN = 1e-4
@@ -1541,7 +1541,7 @@ def shade_hits(scene_arrays, cfg, occluded, orig, direction, prim, t, u, v,
     _launch("skybox_rt_shade_hits", dev,
             _ptr(o), _ptr(d), _ptr(prim), _ptr(t), _ptr(u), _ptr(v),
             _ptr(rec), _ptr(tex), rec.shape[1], th, tw, cfg.ambient,
-            *cfg.light_dir, *cfg.light_color, *tracer.PARK_O,
+            *cfg.light_dir, *cfg.light_color, *intersect.PARK_O,
             SHADOW_OFFSET, R, _ptr(pt), _ptr(n), _ptr(hit), _ptr(rgb),
             _ptr(dark), _ptr(sh_o), _ptr(sh_d))
     if cfg.shadows:
@@ -1563,21 +1563,21 @@ def shade_hits_reference(scene_arrays, cfg, occluded, o, d, prim, t, u, v,
     # gathers (normals + colors [+ uvs] x 3 corners)
     r = scene_arrays["rec"][prim.clamp(min=0).long()]      # (R, 21 | 27)
     R = r.shape[0]
-    n = tracer._interp3(r[:, 0:9].reshape(R, 3, 3), u, v)
-    n = n / tracer._norm3(n).clamp(min=1e-20)
+    n = intersect._interp3(r[:, 0:9].reshape(R, 3, 3), u, v)
+    n = n / intersect._norm3(n).clamp(min=1e-20)
     # two-sided shading: flip normal against the incoming ray
-    n = torch.where(tracer._dot3(n, d) > 0, -n, n)
+    n = torch.where(intersect._dot3(n, d) > 0, -n, n)
 
-    albedo = tracer._interp3(r[:, 9:21].reshape(R, 3, 4), u, v)[..., :3]
+    albedo = intersect._interp3(r[:, 9:21].reshape(R, 3, 4), u, v)[..., :3]
     if cfg.textured:
-        uv = tracer._interp3(r[:, 21:27].reshape(R, 3, 2), u, v)
+        uv = intersect._interp3(r[:, 21:27].reshape(R, 3, 2), u, v)
         texel = sample_texture_bilinear(scene_arrays["texture"],
                                         uv[..., 0], uv[..., 1])
         albedo = albedo * texel[..., :3]
 
-    ldir = tracer._vec(cfg.light_dir, dev)
-    ldir = ldir / tracer._norm3(ldir)
-    ndotl = tracer._dot3(n, ldir)[..., 0].clamp(min=0.0)
+    ldir = intersect._vec(cfg.light_dir, dev)
+    ldir = ldir / intersect._norm3(ldir)
+    ndotl = intersect._dot3(n, ldir)[..., 0].clamp(min=0.0)
 
     if cfg.shadows:
         # park shadow rays of non-hit pixels AND of terminator points
@@ -1586,13 +1586,13 @@ def shade_hits_reference(scene_arrays, cfg, occluded, o, d, prim, t, u, v,
         # its top level.
         need = hit & (ndotl > 0.0)
         sh_o = torch.where(need[..., None], pt + n * SHADOW_OFFSET,
-                           tracer._vec(tracer.PARK_O, dev))
+                           intersect._vec(intersect.PARK_O, dev))
         sh_d = torch.broadcast_to(ldir, sh_o.shape).contiguous()
         with stage("rt.occlusion", stream=True, bounce=bounce,
                    width=sh_o.shape[0]):
             blocked = occluded(sh_o, sh_d, 1e8)
         ndotl = torch.where(blocked, torch.zeros_like(ndotl), ndotl)
 
-    lc = tracer._vec(cfg.light_color, dev)
+    lc = intersect._vec(cfg.light_color, dev)
     rgb = albedo * (cfg.ambient + ndotl[..., None] * lc)
     return rgb, hit, pt, n

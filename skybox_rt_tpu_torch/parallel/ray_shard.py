@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..rt import tracer, wavefront
+from ..rt import tracer
 from . import mesh as mesh_mod
 from . import overlap
 
@@ -30,22 +30,15 @@ def render_sharded(scene: tracer.RTScene, cam: tracer.Camera,
     that renders the scene again may pass ``intersectors``, the (closest,
     occluded) pair of tracer.make_intersectors for this scene, config and
     device, so that the blocks or clusters are not packed again.  Rays go
-    in 32x32 pixel-tile order for every engine whose name starts with
-    "pallas", as tracer.make_frame_fn orders them (the JAX module orders
-    them for "pallas" alone; the per-ray results are the same)."""
+    in the order of tracer.frame_rays, as tracer.make_frame_fn orders them
+    (the JAX module tile-orders them for "pallas" alone; the per-ray
+    results are the same)."""
     device = mesh_mod.mesh_device(mesh)
     scene = scene.finalize()
     scene_arrays = tracer.scene_shade_arrays(scene, cfg, device)
     closest, occluded = (intersectors if intersectors is not None
                          else tracer.make_intersectors(scene, cfg, device))
-    o, d = tracer.camera_rays(cam, cfg.width, cfg.height, device)
-
-    inv = None
-    if (cfg.engine if cfg.use_bvh else "brute").startswith("pallas"):
-        perm, inv = wavefront.tile_order_perm(cfg.width, cfg.height, 32)
-        perm = torch.as_tensor(perm, device=device).long()
-        inv = torch.as_tensor(inv, device=device).long()
-        o, d = o[perm], d[perm]
+    o, d, inv = tracer.frame_rays(cam, cfg, device)
 
     n = mesh.size()
     R = o.shape[0]

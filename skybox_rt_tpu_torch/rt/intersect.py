@@ -9,6 +9,10 @@ package's ``jnp.cross`` / ``jnp.sum`` (left to right), so that the two agree
 to the last bit wherever neither backend contracts a multiply-add.  All-pairs
 calls walk the rays in chunks so that no (R, P) intermediate exceeds
 ``PAIR_BUDGET`` ray-triangle pairs.
+
+The small vector helpers and the parking ray below are shared by the frame
+(rt.tracer) and the shade kernel's plain twin (ops.cuda_rt); this module
+imports nothing of the package, so both can import it.
 """
 from __future__ import annotations
 
@@ -21,6 +25,34 @@ EPS = 1e-9
 #: intermediate of a chunk is then at most 16 MiB, and a chunk keeps about
 #: forty of them alive, so a call stays under ~0.7 GiB
 PAIR_BUDGET = 1 << 22
+
+#: where a dead ray waits, and its direction (away from the scene): a
+#: parked ray leaves every hierarchy at its top level
+PARK_O = (3e7, 3e7, 3e7)
+PARK_D = (0.57735, 0.57735, 0.57735)
+
+
+def _norm3(a):
+    """sqrt(x*x + y*y + z*z) over the last axis, keepdim."""
+    return torch.sqrt(a[..., 0:1] * a[..., 0:1] + a[..., 1:2] * a[..., 1:2]
+                      + a[..., 2:3] * a[..., 2:3])
+
+
+def _dot3(a, b):
+    """a.b over the last axis, keepdim, summed left to right."""
+    return (a[..., 0:1] * b[..., 0:1] + a[..., 1:2] * b[..., 1:2]
+            + a[..., 2:3] * b[..., 2:3])
+
+
+def _vec(values, device):
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def _interp3(rows3, u, v):
+    """Barycentric interpolation of a (R, 3, C) per-corner slice."""
+    w = (1.0 - u - v)[..., None]
+    return rows3[:, 0] * w + rows3[:, 1] * u[..., None] \
+        + rows3[:, 2] * v[..., None]
 
 
 def triangle_arrays(verts, faces):

@@ -54,6 +54,7 @@ import torch
 from ..core import constants as C
 from ..core.device import resolve_device
 from ..geom import cgltrace, transform
+from ..ops import cuda_rt
 from ..texture import mipmap
 from . import bvh as bvh_mod
 from . import intersect, tracer
@@ -153,7 +154,6 @@ def _engine_prep(tri, engine: str, device):
         faces = np.arange(verts.shape[0], dtype=np.int64).reshape(-1, 3)
         bvh = bvh_mod.build_sah(verts, faces)
         if engine == "pallas_bvh":
-            from ..ops import cuda_rt
             bs = bvh_mod.build_block_set(bvh, tri_block=DRAW_TRI_BLOCK)
             prep["blocks"] = cuda_rt.prepare_bvh_blocks(
                 v0, e1, e2, bs, bvh_mod.build_block_leaves(
@@ -176,7 +176,6 @@ def _run_engine(tri, o, d, engine: str):
         prim, _, u, v = intersect.closest_hit_bruteforce(
             o, d, v0, e1, e2, t_min=1e-6)
     elif engine == "pallas_bvh":
-        from ..ops import cuda_rt
         prim, _, u, v = cuda_rt.closest_hit_bvh(o, d, prep["blocks"],
                                                 t_min=1e-6)
     else:

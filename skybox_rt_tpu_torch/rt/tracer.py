@@ -8,8 +8,8 @@ behaviour.
 Rays are a flat (R, ...) batch on one explicit device.  Bounces iterate over a
 fixed depth with active-ray masks; surviving rays are re-compacted to the
 front before each bounce, and the bounce's launch width is chosen on the host
-from the live count (one ``.item()`` a bounce).  Nothing here records
-gradients: the path runs under ``torch.no_grad()``.
+from the live count (one ``.item()`` a bounce, :data:`BOUNCE_WIDTH_LADDER`).
+Nothing here records gradients: the path runs under ``torch.no_grad()``.
 
 Entry points (:func:`make_frame_fn`, :func:`render`) run on the CUDA card
 unless ``device`` says otherwise (core.device).
@@ -23,10 +23,12 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..ops import cuda_rt
 from ..utils.tracing import count, stage
 from . import bvh as bvh_mod
 from . import intersect
 from . import wavefront
+from .intersect import PARK_D, PARK_O, _dot3, _interp3, _norm3, _vec
 
 F32 = torch.float32
 I32 = torch.int32
@@ -47,29 +49,23 @@ BVH_TRI_BLOCK = 256
 #: within noise of each other, 8 the lower closest-hit kernel time; 32 is
 #: slower.
 BVH_LEAF_TRIS = 8
+#: width halvings of the bounce launches: each bounce's closest hit and
+#: shade run at width R, R/2, ... R>>n, the smallest that holds the live
+#: rays (a host decision on the live count).  Compacted live rays are a
+#: prefix and every per-ray result is independent of launch width, so this
+#: is exact; rows past the chosen width are dead (weight 0) and get parked
+#: outputs.  0 launches every bounce at R.
+BOUNCE_WIDTH_LADDER = 2
 
 ENGINES = ("pallas", "pallas_bvh", "pallas_streamed", "pallas_worklist",
            "bvh", "brute")
-COMPACT_METHODS = ("argsort", "argsort_om", "octant", "partition")
 
-PARK_O = (3e7, 3e7, 3e7)
-PARK_D = (0.57735, 0.57735, 0.57735)
-
-
-def _norm3(a):
-    """sqrt(x*x + y*y + z*z) over the last axis, keepdim."""
-    return torch.sqrt(a[..., 0:1] * a[..., 0:1] + a[..., 1:2] * a[..., 1:2]
-                      + a[..., 2:3] * a[..., 2:3])
-
-
-def _dot3(a, b):
-    """a.b over the last axis, keepdim, summed left to right."""
-    return (a[..., 0:1] * b[..., 0:1] + a[..., 1:2] * b[..., 1:2]
-            + a[..., 2:3] * b[..., 2:3])
-
-
-def _vec(values, device):
-    return torch.tensor(values, dtype=F32, device=device)
+#: Lambert + optional texture + optional shadow for a hit batch, the shadow
+#: query in the stage ``rt.occlusion`` of its bounce: on the card one kernel
+#: before the query and one torch.where after it, on the CPU its plain twin
+#: (ops.cuda_rt.shade_hits).  trace_rays looks the name up here at each
+#: call.  Returns (rgb (R,3), hit_mask (R,), hit_point, normal).
+shade_hits = cuda_rt.shade_hits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +93,6 @@ class RTConfig:
     bounces: int = 0              # extra reflection bounces after primary
     shadows: bool = False
     textured: bool = False
-    use_bvh: bool = True          # legacy toggle: False forces engine=brute
     # engine: 'pallas' (the default, as in the JAX package: the clustered
     # CUDA kernels of ops.cuda_rt at or below PALLAS_MAX_TRIS triangles,
     # 'pallas_bvh' above), 'pallas_bvh' (BVH-treelet blocks: the BVH-block
@@ -108,25 +103,6 @@ class RTConfig:
     # the JAX package: closest-hit kernels of ops.cuda_rt over the clusters'
     # treelet order, occlusion the same query with prim >= 0.
     engine: str = "pallas"
-    # re-compact surviving rays to the front before each bounce.  Dead rays
-    # are parked at a far origin and grouped at the tail, so whole warps of
-    # them leave the hierarchy at its top level.
-    compact_bounces: bool = True
-    # compaction permutation: 'argsort' (octant+Morton full sort),
-    # 'argsort_om' (origin-major key, see _compact_key), 'octant' (counting
-    # sort, no Morton), or 'partition' (active-first only)
-    compact_method: str = "argsort"
-    # stay in compacted order across bounces (one packed row gather per
-    # bounce + one final scatter) instead of unsorting every bounce's
-    # outputs.  Pure scheduling change: identical image.
-    compact_stay: bool = True
-    # number of width halvings for the bounce shape ladder: each bounce's
-    # closest+shade runs at width R, R/2, ... R>>n, the smallest that holds
-    # the live rays (a host decision on the live count).  Compacted live
-    # rays are a prefix and every per-ray result is independent of launch
-    # width, so this is exact; rows past the chosen width are dead (weight
-    # 0) and get parked outputs.  Requires compact_stay.  0 = off.
-    bounce_width_ladder: int = 2
     background: tuple = (0.0, 0.0, 0.0, 1.0)
     ambient: float = 0.1
     light_dir: tuple = (0.4, 0.8, 0.45)   # directional light (to light)
@@ -192,6 +168,22 @@ def camera_rays(cam: Camera, width: int, height: int, device=None):
     return o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
 
 
+def frame_rays(cam: Camera, cfg: RTConfig, device=None):
+    """(o, d, inv): the frame's primary rays in the order its engine
+    expects, and the permutation that puts a traced image back in scanline
+    order, or None.  An engine whose name starts with ``pallas`` takes its
+    rays in 32x32 pixel-tile order (rt.wavefront.tile_order_perm), which
+    keeps the rays of a warp together; 'bvh' and 'brute' take scanline
+    order."""
+    device = resolve_device(device)
+    o, d = camera_rays(cam, cfg.width, cfg.height, device)
+    if not cfg.engine.startswith("pallas"):
+        return o, d, None
+    perm, inv = wavefront.tile_order_perm(cfg.width, cfg.height, 32)
+    perm = torch.as_tensor(perm, device=device).long()
+    return o[perm], d[perm], torch.as_tensor(inv, device=device).long()
+
+
 def _part1by2_i32(x):
     """Spread 9 bits of x to every 3rd bit (int32 Morton helper)."""
     x = x & 0x1FF
@@ -207,16 +199,11 @@ def _octant(d):
     return pos[:, 0] | (pos[:, 1] << 1) | (pos[:, 2] << 2)
 
 
-def _compact_key(active, o, d, origin_major: bool = False):
+def _compact_key(active, o, d):
     """Bounce re-compaction sort key (int32, bits 0..29; inactive = 1<<30):
     inactive rays last; active rays grouped by direction OCTANT and ordered
     by a 27-bit Morton code of the origin within the active bbox, so that
-    consecutive sorted rays start close together and head the same way.
-
-    origin_major puts the top 6 Morton bits (two octree levels of the
-    origin) ABOVE the octant bits: octant-major sweeps the scene once per
-    octant, origin-major keeps neighbouring origins together and lets the
-    octant split only within a coarse cell."""
+    consecutive sorted rays start close together and head the same way."""
     oct_ = _octant(d)
     big = torch.full((), 3e38, dtype=F32, device=o.device)
     lo = torch.where(active[:, None], o, big).amin(dim=0)
@@ -225,71 +212,14 @@ def _compact_key(active, o, d, origin_major: bool = False):
     q = ((o - lo) * scale).clamp(0.0, 511.0).to(I32)
     m = (_part1by2_i32(q[:, 0]) << 2) | (_part1by2_i32(q[:, 1]) << 1) \
         | _part1by2_i32(q[:, 2])
-    if origin_major:
-        key = ((m >> 21) << 24) | (oct_ << 21) | (m & 0x1FFFFF)
-    else:
-        key = (oct_ << 27) | m
-    return torch.where(active, key, 1 << 30)
-
-
-def _inverse_perm(perm):
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype,
-                             device=perm.device)
-    return inv
-
-
-def _bucket_perm(key, num_buckets: int):
-    """Stable counting-sort permutation for a SMALL integer key — no
-    argsort: rank-within-bucket via a (R, B) cumsum of one-hots plus
-    bucket offsets.  Returns (perm, inv) with out[i] = in[perm[i]]; the
-    scatter's indices are unique, so it needs no atomics."""
-    B = num_buckets
-    key = key.long()
-    onehot = (key[:, None] == torch.arange(B, device=key.device)[None]
-              ).long()                               # (R, B)
-    ranks = torch.cumsum(onehot, dim=0) - 1          # (R, B) in-bucket rank
-    counts = ranks[-1] + 1
-    offsets = torch.cumsum(counts, dim=0) - counts
-    pos = offsets[key] + ranks.gather(1, key[:, None])[:, 0]
-    return _inverse_perm(pos), pos
-
-
-def _compact_perm(active, o, d, method: str, want_inv: bool = True):
-    """Bounce-compaction permutation (perm, inv): surviving rays to the
-    front, dead rays last.  method:
-      'argsort'   — (octant, origin-Morton) full sort (_compact_key)
-      'argsort_om'— the same with the origin-major key
-      'octant'    — counting sort by direction octant only; within an
-                    octant rays keep their previous (pixel-tile) order
-      'partition' — active-first 2-bucket split only
-    want_inv=False skips the inverse permutation (the stay-compacted
-    bounce loop never unsorts).
-    """
-    if method in ("argsort", "argsort_om"):
-        perm = torch.argsort(
-            _compact_key(active, o, d, origin_major=method == "argsort_om"),
-            stable=True)
-        return perm, (_inverse_perm(perm) if want_inv else None)
-    if method == "octant":
-        return _bucket_perm(torch.where(active, _octant(d), 8), 9)
-    if method == "partition":
-        return _bucket_perm((~active).to(I32), 2)
-    raise ValueError(f"unknown compact_method {method!r}")
-
-
-def _interp3(rows3, u, v):
-    """Barycentric interpolation of a (R, 3, C) per-corner slice."""
-    w = (1.0 - u - v)[..., None]
-    return rows3[:, 0] * w + rows3[:, 1] * u[..., None] \
-        + rows3[:, 2] * v[..., None]
+    return torch.where(active, (oct_ << 27) | m, 1 << 30)
 
 
 def resolve_engine(cfg: RTConfig, num_tris: int) -> str:
     """The engine make_intersectors takes for a scene of num_tris triangles
     ("pallas" stands for the clustered kernels: it is returned only at or
     below PALLAS_MAX_TRIS)."""
-    engine = cfg.engine if cfg.use_bvh else "brute"
+    engine = cfg.engine
     if engine == "pallas" and num_tris > PALLAS_MAX_TRIS:
         engine = "pallas_bvh"
     if engine not in ENGINES:
@@ -312,8 +242,6 @@ def make_intersectors(scene: RTScene, cfg: RTConfig, device=None):
             torch.as_tensor(t_max, dtype=F32, device=o.device), o.shape[:1])
 
     if engine == "pallas":
-        from ..ops import cuda_rt
-
         clusters = cuda_rt.prepare_clusters(
             *tri, bvh_mod.build_clusters(scene.bvh))
 
@@ -325,8 +253,6 @@ def make_intersectors(scene: RTScene, cfg: RTConfig, device=None):
             return cuda_rt.any_hit_clustered(o, d, clusters,
                                              t_max=per_ray(t_max, o))
     elif engine == "pallas_bvh":
-        from ..ops import cuda_rt
-
         block_set = bvh_mod.build_block_set(scene.bvh,
                                             tri_block=BVH_TRI_BLOCK)
         blocks = cuda_rt.prepare_bvh_blocks(
@@ -340,8 +266,6 @@ def make_intersectors(scene: RTScene, cfg: RTConfig, device=None):
         def occluded(o, d, t_max):
             return cuda_rt.any_hit_bvh(o, d, blocks, t_max=per_ray(t_max, o))
     elif engine in ("pallas_streamed", "pallas_worklist"):
-        from ..ops import cuda_rt
-
         # treelet order makes consecutive records spatially tight, so the
         # blocks' boxes are small and their gates fire
         stream = cuda_rt.prepare_stream_blocks(
@@ -374,20 +298,6 @@ def make_intersectors(scene: RTScene, cfg: RTConfig, device=None):
         def occluded(o, d, t_max):
             return intersect.any_hit_bruteforce(o, d, *tri, t_max=t_max)
     return closest, occluded
-
-
-def shade_hits(scene_arrays, cfg: RTConfig, occluded, o, d, prim, t, u, v,
-               bounce: int = 0):
-    """Lambert + optional texture + optional shadow for a hit batch; the
-    shadow query runs in the stage ``rt.occlusion`` of ``bounce``.  On the
-    card one kernel before the query and one torch.where after it
-    (ops.cuda_rt.shade_hits); on the CPU its plain twin.
-
-    Returns (rgb (R,3), hit_mask (R,), hit_point, normal)."""
-    from ..ops import cuda_rt
-
-    return cuda_rt.shade_hits(scene_arrays, cfg, occluded, o, d, prim, t, u,
-                              v, bounce)
 
 
 def scene_shade_arrays(scene: RTScene, cfg: RTConfig, device=None) -> dict:
@@ -432,7 +342,7 @@ def trace_rays(scene_arrays, cfg: RTConfig, closest, occluded,
     Each query, shade, compaction, host read and accumulation runs in a
     ``utils.tracing`` stage named ``rt.*`` with its bounce (0 = primary);
     the shade, shadow and compaction stages record device-stream times
-    whenever tracing is on.  The stay-compacted loop counts
+    whenever tracing is on.  The bounce loop counts
     ``rt.rays_live`` (each bounce's live count, already on the host) and
     ``rt.rays_launched`` (each bounce's closest-hit width).  None of them
     reads the device."""
@@ -465,119 +375,72 @@ def trace_rays(scene_arrays, cfg: RTConfig, closest, occluded,
              torch.where(active[..., None], rd, park_d),
              rgb, weight, hitf], dim=1)
 
-    # mirror bounces: active-mask iteration
+    # mirror bounces: active-mask iteration.  The state lives in the
+    # compacted order of the latest bounce; `orig` maps each slot back to
+    # launch order and one final scatter restores it.
     if cfg.bounces > 0 and reflectivity > 0:
-        if cfg.compact_method not in COMPACT_METHODS:
-            raise ValueError(f"unknown compact_method {cfg.compact_method!r}")
-        if cfg.compact_bounces and cfg.compact_stay:
-            # Stay-compacted bounce loop: state lives in the compacted
-            # order of the LATEST bounce; `orig` maps each slot back to
-            # launch order and ONE final scatter restores it.  Per-ray
-            # arithmetic is identical to the other loops: pure scheduling.
-            sort_ladder = (cfg.bounce_width_ladder
-                           if cfg.compact_method in ("argsort", "argsort_om")
-                           else 0)
-            prev_live = None
-            with stage("rt.accumulate", bounce=0):
-                weight = torch.where(hit, reflectivity, 0.0).to(F32)[..., None]
-                park_o, park_d = _vec(PARK_O, dev), _vec(PARK_D, dev)
-                orig = torch.arange(R, device=dev)
-                hitf = hit.to(F32)[:, None]
-                ro, rd = reflect(pt, d, n)
-                active, packed = pack(ro, rd, rgb, weight, hitf)
-            for b in range(1, cfg.bounces + 1):
-                with stage("rt.sync", bounce=b) as attrs:
-                    live = int(active.sum().item())   # the bounce's one sync
-                    attrs["live"] = live
-                count("rt.rays_live", live)
-                # Compaction ladder: bounce b's live rays all sit in bounce
-                # b-1's live prefix, so the argsort + packed gather only
-                # need the first sw rows — the stable sort gives the live
-                # rays the SAME order as a full-width sort (dead keys are
-                # all the max sentinel; only the dead tail's order differs,
-                # which nothing observes).
-                ladder_sort = b > 1 and sort_ladder
-                sw = (_ladder_width(R, prev_live, sort_ladder) if ladder_sort
-                      else R)
-                w = _ladder_width(R, live, cfg.bounce_width_ladder)
-                with stage("rt.compact", stream=True, bounce=b, width=sw):
-                    if ladder_sort:
-                        key = _compact_key(
-                            active, ro, rd,
-                            origin_major=cfg.compact_method == "argsort_om")
-                        pw = torch.argsort(key[:sw], stable=True)
-                        pc = torch.cat([packed[:sw][pw], packed[sw:]])
-                        orig = torch.cat([orig[:sw][pw], orig[sw:]])
-                    else:
-                        perm, _ = _compact_perm(active, ro, rd,
-                                                cfg.compact_method,
-                                                want_inv=False)
-                        pc = packed[perm]             # ONE row gather
-                        orig = orig[perm]
-                    prev_live = live
-                    rd_c = pc[:, 3:6]
-                    rgb, weight, hitf = pc[:, 6:9], pc[:, 9:10], pc[:, 10:11]
-                    ro_s = pc[:w, 0:3].contiguous()
-                    rd_s = rd_c[:w].contiguous()
-                count("rt.rays_launched", w)
-                with stage("rt.closest", bounce=b, width=w):
-                    p2, t2, u2, v2 = closest(ro_s, rd_s)
-                with stage("rt.shade", stream=True, bounce=b):
-                    rgb2, hit2, pt2, n2 = shade_hits(
-                        scene_arrays, cfg, occluded, ro_s, rd_s,
-                        p2, t2, u2, v2, bounce=b)
-                with stage("rt.accumulate", bounce=b):
-                    pad = R - w
-                    if pad:
-                        z3 = torch.zeros((pad, 3), dtype=F32, device=dev)
-                        rgb2 = torch.cat([rgb2, z3])
-                        hit2 = torch.cat([hit2, torch.zeros(
-                            (pad,), dtype=torch.bool, device=dev)])
-                        pt2 = torch.cat([pt2, z3 + park_o])
-                        n2 = torch.cat([n2, z3 + _vec((0.0, 0.0, 1.0), dev)])
-                    rgb, weight = accumulate(rgb, weight, rgb2, hit2)
-                    if b < cfg.bounces:
-                        ro, rd = reflect(pt2, rd_c, n2)
-                        active, packed = pack(ro, rd, rgb, weight, hitf)
-            with stage("rt.unsort"):
-                out = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
-                rgba = torch.where(hitf > 0.5, out, bg)
-                final = torch.empty_like(rgba)
-                final[orig] = rgba    # unique indices: a plain scatter
-            return final
+        prev_live = None
         with stage("rt.accumulate", bounce=0):
             weight = torch.where(hit, reflectivity, 0.0).to(F32)[..., None]
             park_o, park_d = _vec(PARK_O, dev), _vec(PARK_D, dev)
+            orig = torch.arange(R, device=dev)
+            hitf = hit.to(F32)[:, None]
             ro, rd = reflect(pt, d, n)
+            active, packed = pack(ro, rd, rgb, weight, hitf)
         for b in range(1, cfg.bounces + 1):
-            if cfg.compact_bounces:
-                # re-compaction between bounces: sort surviving rays to
-                # the front and park dead rays at a far origin, heading
-                # away.  Shading (incl. the shadow launch) runs in the
-                # compacted order too; outputs unsort after it.
-                with stage("rt.compact", stream=True, bounce=b, width=R):
-                    active = weight[..., 0] > 0
-                    perm, inv_perm = _compact_perm(active, ro, rd,
-                                                   cfg.compact_method)
-                    ro_c = torch.where(active[..., None], ro, park_o)[perm]
-                    rd_c = torch.where(active[..., None], rd, park_d)[perm]
-            else:
-                ro_c, rd_c = ro, rd
-            with stage("rt.closest", bounce=b, width=R):
-                p2, t2, u2, v2 = closest(ro_c, rd_c)
+            with stage("rt.sync", bounce=b) as attrs:
+                live = int(active.sum().item())   # the bounce's one sync
+                attrs["live"] = live
+            count("rt.rays_live", live)
+            # Compaction ladder: bounce b's live rays all sit in bounce
+            # b-1's live prefix, so past the first bounce the argsort and
+            # the packed gather only need the first sw rows.  The stable
+            # sort gives the live rays the SAME order as a full-width sort
+            # (dead keys are all the max sentinel; only the dead tail's
+            # order differs, which nothing observes).
+            sw = (R if b == 1
+                  else _ladder_width(R, prev_live, BOUNCE_WIDTH_LADDER))
+            w = _ladder_width(R, live, BOUNCE_WIDTH_LADDER)
+            with stage("rt.compact", stream=True, bounce=b, width=sw):
+                perm = torch.argsort(_compact_key(active, ro, rd)[:sw],
+                                     stable=True)
+                if b == 1:
+                    pc = packed[perm]                 # ONE row gather
+                    orig = orig[perm]
+                else:
+                    pc = torch.cat([packed[:sw][perm], packed[sw:]])
+                    orig = torch.cat([orig[:sw][perm], orig[sw:]])
+                prev_live = live
+                rd_c = pc[:, 3:6]
+                rgb, weight, hitf = pc[:, 6:9], pc[:, 9:10], pc[:, 10:11]
+                ro_s = pc[:w, 0:3].contiguous()
+                rd_s = rd_c[:w].contiguous()
+            count("rt.rays_launched", w)
+            with stage("rt.closest", bounce=b, width=w):
+                p2, t2, u2, v2 = closest(ro_s, rd_s)
             with stage("rt.shade", stream=True, bounce=b):
                 rgb2, hit2, pt2, n2 = shade_hits(
-                    scene_arrays, cfg, occluded, ro_c, rd_c, p2, t2, u2, v2,
-                    bounce=b)
-            if cfg.compact_bounces:
-                with stage("rt.unsort", bounce=b):
-                    rgb2, pt2, n2 = (rgb2[inv_perm], pt2[inv_perm],
-                                     n2[inv_perm])
-                    hit2 = hit2[inv_perm]
+                    scene_arrays, cfg, occluded, ro_s, rd_s,
+                    p2, t2, u2, v2, bounce=b)
             with stage("rt.accumulate", bounce=b):
+                pad = R - w
+                if pad:
+                    z3 = torch.zeros((pad, 3), dtype=F32, device=dev)
+                    rgb2 = torch.cat([rgb2, z3])
+                    hit2 = torch.cat([hit2, torch.zeros(
+                        (pad,), dtype=torch.bool, device=dev)])
+                    pt2 = torch.cat([pt2, z3 + park_o])
+                    n2 = torch.cat([n2, z3 + _vec((0.0, 0.0, 1.0), dev)])
                 rgb, weight = accumulate(rgb, weight, rgb2, hit2)
                 if b < cfg.bounces:
-                    ro, rd = reflect(pt2, rd, n2)
+                    ro, rd = reflect(pt2, rd_c, n2)
+                    active, packed = pack(ro, rd, rgb, weight, hitf)
+        with stage("rt.unsort"):
+            out = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+            rgba = torch.where(hitf > 0.5, out, bg)
+            final = torch.empty_like(rgba)
+            final[orig] = rgba    # unique indices: a plain scatter
+        return final
 
     out = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
     return torch.where(hit[..., None], out, bg)
@@ -590,11 +453,9 @@ def make_frame_fn(scene: RTScene, cam: Camera, cfg: RTConfig, device=None):
     Returns (frame, (o, d)): frame(o, d) -> (H, W, 4) float32 tensor on the
     device, row 0 = bottom.  The scene's arrays, BVH blocks and intersectors
     are built and uploaded here; ``frame`` only traces.  o, d may be tensors
-    or numpy arrays.  For an engine whose name starts with ``pallas`` the
-    rays come back, and are expected, in 32x32 pixel-tile order
-    (rt.wavefront.tile_order_perm), which keeps the rays of a warp together;
-    the image is unsorted at the end.  For 'bvh' and 'brute' they are in
-    scanline order.  Set-up runs in the ``utils.tracing`` stage
+    or numpy arrays, in the order of :func:`frame_rays` (32x32 pixel tiles
+    for an engine whose name starts with ``pallas``, else scanline); the
+    image is unsorted at the end.  Set-up runs in the ``utils.tracing`` stage
     ``rt.prepare`` (``.bvh``, ``.shade_arrays``, ``.engine``, ``.rays``
     inside it), each frame in ``rt.frame``, which opens a frame id.
     """
@@ -607,14 +468,7 @@ def make_frame_fn(scene: RTScene, cam: Camera, cfg: RTConfig, device=None):
         with stage("rt.prepare.engine", engine=engine):
             closest, occluded = make_intersectors(scene, cfg, device)
         with stage("rt.prepare.rays", width=cfg.width, height=cfg.height):
-            o, d = camera_rays(cam, cfg.width, cfg.height, device)
-            inv_t = None
-            if (cfg.engine if cfg.use_bvh else "brute").startswith("pallas"):
-                perm, inv = wavefront.tile_order_perm(cfg.width, cfg.height,
-                                                      32)
-                perm_t = torch.as_tensor(perm, device=device).long()
-                o, d = o[perm_t], d[perm_t]
-                inv_t = torch.as_tensor(inv, device=device).long()
+            o, d, inv_t = frame_rays(cam, cfg, device)
 
     def on_device(a):
         if not torch.is_tensor(a):

@@ -303,6 +303,36 @@ def test_no_jax_after_import_and_render(probe):
     assert probe["sharded_equal"]
 
 
+def test_ops_and_rt_import_one_way():
+    """The kernel wrappers sit below the frame: ops.cuda_rt, imported first
+    in a fresh interpreter, loads rt.intersect and not rt.tracer, and
+    rt/tracer.py and rt/raster_bridge.py import ops at module level only,
+    with no import inside a function to get round a cycle."""
+    import ast
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import json, sys\n"
+         "import skybox_rt_tpu_torch.ops.cuda_rt\n"
+         "print(json.dumps(sorted(m for m in sys.modules\n"
+         "                        if m.startswith('skybox_rt_tpu_torch.'))))"],
+        capture_output=True, text=True, cwd=REPO, env=_clean_env(),
+        timeout=120)
+    assert res.returncode == 0, res.stderr
+    loaded = json.loads(res.stdout.strip().splitlines()[-1])
+    assert "skybox_rt_tpu_torch.rt.intersect" in loaded
+    assert "skybox_rt_tpu_torch.rt.tracer" not in loaded
+    for name in ("tracer.py", "raster_bridge.py"):
+        path = os.path.join(REPO, "skybox_rt_tpu_torch", "rt", name)
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        nested = [(fn.name, node.lineno) for fn in ast.walk(tree)
+                  if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                  for node in ast.walk(fn)
+                  if isinstance(node, ast.ImportFrom) and node.level == 2
+                  and (node.module or "").split(".")[0] == "ops"]
+        assert nested == [], (name, nested)
+
+
 _BAD_IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|optax|orbax|skybox_rt_tpu)(\.|\s|$)",
     re.M)

@@ -75,10 +75,10 @@ def test_solve_hit():
                                    atol=2e-5, err_msg=name)
 
 
-@pytest.mark.parametrize("use_bvh", [False, True], ids=["brute", "bvh"])
-def test_closest_hit_diff(use_bvh):
+@pytest.mark.parametrize("with_bvh", [False, True], ids=["brute", "bvh"])
+def test_closest_hit_diff(with_bvh):
     verts, faces, _, _, o, d, _ = _scene()
-    arrays, jarrays = _bvh_arrays(verts, faces) if use_bvh else (None, None)
+    arrays, jarrays = _bvh_arrays(verts, faces) if with_bvh else (None, None)
     prim, t, u, v = diff.closest_hit_diff(verts, faces, o, d, arrays,
                                           device="cpu")
     jp, jt, ju, jv = jax_diff.closest_hit_diff(
@@ -138,10 +138,10 @@ def test_per_ray_stack_traversal_matches_jax_and_bruteforce():
                             leaf_size=2, stack_depth=2)
 
 
-def _render_pair(name, use_bvh):
+def _render_pair(name, with_bvh):
     """(port loss fn over leaves, jax loss fn, leaf arrays, names)."""
     verts, faces, colors, normals, o, d, weights = _scene()
-    arrays, jarrays = _bvh_arrays(verts, faces) if use_bvh else (None, None)
+    arrays, jarrays = _bvh_arrays(verts, faces) if with_bvh else (None, None)
     jf, jo, jd, jw = (jnp.asarray(a) for a in (faces, o, d, weights))
     w = torch.as_tensor(weights)
     if name == "depth":
@@ -192,11 +192,11 @@ def _render_pair(name, use_bvh):
     return port, ref, leaves, names
 
 
-@pytest.mark.parametrize("name,use_bvh", [
+@pytest.mark.parametrize("name,with_bvh", [
     ("depth", True), ("lambert", False), ("lambert", True),
     ("lambert_smooth", True), ("lambert_soft", False)])
-def test_render_values_and_gradients(name, use_bvh):
-    port, ref, arrays, names = _render_pair(name, use_bvh)
+def test_render_values_and_gradients(name, with_bvh):
+    port, ref, arrays, names = _render_pair(name, with_bvh)
     leaves = _leaves(*arrays)
     img, loss = port(*leaves)
     grads = torch.autograd.grad(loss, leaves)

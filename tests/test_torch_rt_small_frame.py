@@ -167,17 +167,15 @@ def test_small_frame_matches_jax(name, calls):
                                    err_msg=engine)
 
 
-@pytest.mark.parametrize("variant", [dict(bounce_width_ladder=0),
-                                     dict(compact_stay=False),
-                                     dict(compact_bounces=False)],
-                         ids=["ladder_off", "no_stay", "no_compact"])
-def test_scheduling_variants_bit_identical(variant, calls):
-    """Launch width and ray order are scheduling: every ray's result is its
-    own, so the image is equal bit for bit."""
+@pytest.mark.parametrize("ladder", [0], ids=["ladder_off"])
+def test_scheduling_variants_bit_identical(ladder, calls, monkeypatch):
+    """Launch width is scheduling: every ray's result is its own, so the
+    image is equal bit for bit."""
     scene, cam, cfg, o, d, _ = _reference("bounces")
     base = _render(scene, cam, cfg, o, d)
+    monkeypatch.setattr(tracer, "BOUNCE_WIDTH_LADDER", ladder)
     other = _render(scene, cam, tracer.RTConfig(
-        width=SIZE, height=SIZE, **BOUNCES, **variant), o, d)
+        width=SIZE, height=SIZE, **BOUNCES), o, d)
     assert calls == {"closest": 6, "any": 6}
     np.testing.assert_array_equal(base, other)
 
@@ -212,7 +210,7 @@ def test_resolve_engine(num_tris, engine, resolved):
     cfg = tracer.RTConfig(width=8, height=8, engine=engine)
     assert tracer.resolve_engine(cfg, num_tris) == resolved
     assert tracer.resolve_engine(tracer.RTConfig(
-        width=8, height=8, engine=engine, use_bvh=False), num_tris) == "brute"
+        width=8, height=8, engine="brute"), num_tris) == "brute"
     # the comparison engines resolve to themselves at any size
     for kept in ("pallas_streamed", "pallas_worklist"):
         assert tracer.resolve_engine(tracer.RTConfig(

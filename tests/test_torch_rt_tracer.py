@@ -10,12 +10,13 @@ tiles by the port's ``tile_order_perm`` (the order a ``pallas*`` engine's
 as its own tests do on the CPU.
 
 Tolerances: image atol 2e-5 (the JAX suite's cross-engine tolerance) for the
-primary, shadowed and textured frames; atol 1e-4 with two bounces, the count
-of values beyond 2e-5 printed.  Compaction, its method, the stay-compacted
-loop and the width ladder are pure scheduling, so every such variant of the
-port is held to the one JAX bounce frame (the JAX suite checks the variants'
-identity on its side).  The port's ``pallas_bvh`` against its own ``brute``
-and ``bvh`` engines: atol 2e-5.
+primary, shadowed and textured frames; atol 1e-4 with bounces, the count of
+values beyond 2e-5 printed.  The one bounce loop runs under every engine of
+the port, each held to the one JAX bounce frame, and at other depths, with
+and without shadows, against the JAX all-pairs frame of the same config.
+The width ladder is pure scheduling: ladder 0 and 2 give the same bits.
+The port's ``pallas_bvh`` against its own ``brute`` and ``bvh`` engines:
+atol 2e-5.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -40,17 +41,13 @@ FRAMES = {
     "bounces": dict(bounces=2, shadows=True),
     "textured": dict(textured=True, shadows=True),
 }
-# scheduling variants of the bounce frame
-VARIANTS = {
-    "default": dict(),
-    "no_stay": dict(compact_stay=False),
-    "no_compact": dict(compact_bounces=False),
-    "argsort_om": dict(compact_method="argsort_om"),
-    "octant": dict(compact_method="octant"),
-    "partition": dict(compact_method="partition"),
-    "octant_no_stay": dict(compact_method="octant", compact_stay=False),
-    "ladder0": dict(bounce_width_ladder=0),
-    "ladder1": dict(bounce_width_ladder=1),
+# bounce depths and shadows of the depth sweep, beside FRAMES["bounces"]
+DEPTHS = {
+    "b1": dict(bounces=1),
+    "b1_shadows": dict(bounces=1, shadows=True),
+    "b2": dict(bounces=2),
+    "b3": dict(bounces=3),
+    "b3_shadows": dict(bounces=3, shadows=True),
 }
 
 
@@ -80,6 +77,7 @@ def _jax_scene(name):
 
 
 _cache = {}
+_renders = {}
 
 
 def _reference(name):
@@ -130,37 +128,85 @@ def test_frame_matches_jax(name):
         np.testing.assert_allclose(got, other, atol=2e-5, err_msg=engine)
 
 
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_bounce_frame_matches_jax(variant):
-    scene, cam, o, d, want, _ = _reference("bounces")
-    cfg = tracer.RTConfig(width=SIZE, height=SIZE, engine="pallas_bvh",
-                          **FRAMES["bounces"], **VARIANTS[variant])
-    cuda_rt.reset_launch_counts()
-    got = _render(scene, cam, cfg, o, d)
-    # the CPU runs the plain versions: no kernel launch is counted
-    assert not cuda_rt.launch_counts
+def _bounce_render(engine):
+    """The port's bounce frame under ``engine``, rendered once per process."""
+    if engine not in _renders:
+        scene, cam, o, d, _, _ = _reference("bounces")
+        cuda_rt.reset_launch_counts()
+        _renders[engine] = _render(scene, cam, tracer.RTConfig(
+            width=SIZE, height=SIZE, engine=engine, **FRAMES["bounces"]),
+            o, d)
+        # the CPU runs the plain versions: no kernel launch is counted
+        assert not cuda_rt.launch_counts
+    return _renders[engine]
+
+
+@pytest.mark.parametrize("engine", [
+    pytest.param("pallas_bvh", id="default"), "pallas", "pallas_streamed",
+    "pallas_worklist", "bvh", "brute"])
+def test_bounce_frame_matches_jax(engine):
+    """The one bounce loop under each of the port's engines against the JAX
+    pallas_bvh bounce frame."""
+    assert engine in tracer.ENGINES
+    want = _reference("bounces")[4]
+    got = _bounce_render(engine)
     diff = np.abs(got - want)
-    print(f"{variant}: max |diff| {diff.max():.3e}, beyond 2e-5: "
+    print(f"{engine}: max |diff| {diff.max():.3e}, beyond 2e-5: "
           f"{int((diff > 2e-5).sum())} of {diff.size}")
     np.testing.assert_allclose(got, want, atol=1e-4)
     primary = _reference("shadows")[4]
     assert np.abs(want - primary).max() > 0.02      # the bounces show
-    if variant == "default":
-        for engine in ("brute", "bvh"):
-            other = _render(scene, cam, tracer.RTConfig(
-                width=SIZE, height=SIZE, engine=engine, **FRAMES["bounces"]),
-                o, d)
-            np.testing.assert_allclose(got, other, atol=2e-5, err_msg=engine)
+    if engine == "pallas_bvh":
+        for other in ("brute", "bvh"):
+            np.testing.assert_allclose(got, _bounce_render(other), atol=2e-5,
+                                       err_msg=other)
 
 
-def test_ladder_variants_bit_identical():
+@pytest.mark.parametrize("depth", sorted(DEPTHS))
+def test_bounce_depths_match_jax(depth, monkeypatch):
+    """Bounce depths 1 to 3, with and without shadows, on pallas_bvh
+    against the JAX all-pairs frame of the same config (scanline rays, no
+    Pallas interpret).  Few rays survive a bounce here, so every bounce
+    launches at R/4 and, past the first, sorts only that prefix."""
+    scene, cam, o, d, _, _ = _reference("bounces")
+    jscene, jcam = _jax_scene("bounces")
+    jcfg = jax_tracer.RTConfig(width=SIZE, height=SIZE, engine="brute",
+                               **DEPTHS[depth])
+    frame, _ = jax_tracer.make_frame_fn(jscene, jcam, jcfg)
+    want = np.asarray(frame(jnp.asarray(o), jnp.asarray(d)))
+    widths = []
+    ladder = tracer._ladder_width
+
+    def recorded(*args):
+        widths.append(ladder(*args))
+        return widths[-1]
+
+    monkeypatch.setattr(tracer, "_ladder_width", recorded)
+    got = _render(scene, cam, tracer.RTConfig(
+        width=SIZE, height=SIZE, engine="pallas_bvh", **DEPTHS[depth]), o, d)
+    bounces = DEPTHS[depth]["bounces"]
+    # one launch width a bounce, one prefix width a bounce past the first
+    assert len(widths) == 2 * bounces - 1
+    assert max(widths) < SIZE * SIZE    # the ladder narrows every launch
+    diff = np.abs(got - want)
+    print(f"{depth}: max |diff| {diff.max():.3e}, beyond 2e-5: "
+          f"{int((diff > 2e-5).sum())} of {diff.size}, widths {widths}")
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    assert np.abs(want - _reference("primary")[4]).max() > 0.02
+
+
+def test_ladder_variants_bit_identical(monkeypatch):
     """Ladder 0 against ladder 2: the same per-ray arithmetic at another
     launch width, so the images are equal bit for bit."""
     scene, cam, o, d, _, _ = _reference("bounces")
-    imgs = [_render(scene, cam, tracer.RTConfig(
-        width=SIZE, height=SIZE, engine="pallas_bvh", bounce_width_ladder=k,
-        **FRAMES["bounces"]), o, d) for k in (0, 2)]
+    imgs = []
+    for k in (0, 2):
+        monkeypatch.setattr(tracer, "BOUNCE_WIDTH_LADDER", k)
+        imgs.append(_render(scene, cam, tracer.RTConfig(
+            width=SIZE, height=SIZE, engine="pallas_bvh",
+            **FRAMES["bounces"]), o, d))
     np.testing.assert_array_equal(imgs[0], imgs[1])
+    assert tracer.BOUNCE_WIDTH_LADDER == 2
     assert tracer._ladder_width(4096, 1000, 2) == 1024
     assert tracer._ladder_width(4096, 1025, 2) == 2048
     assert tracer._ladder_width(4096, 3000, 2) == 4096
@@ -185,39 +231,24 @@ def test_compaction_helpers_match_jax():
     o = rng.normal(size=(R, 3)).astype(np.float32)
     d = rng.normal(size=(R, 3)).astype(np.float32)
     active = rng.random(R) < 0.6
-    for om in (False, True):
-        want = np.asarray(jax_tracer._compact_key(
-            jnp.asarray(active), jnp.asarray(o), jnp.asarray(d), om))
-        got = tracer._compact_key(torch.as_tensor(active), torch.as_tensor(o),
-                                  torch.as_tensor(d), om)
-        assert got.dtype == torch.int32
-        # the quantized origin truncates a float: a last-ulp difference may
-        # move a handful of keys by one cell
-        assert (got.numpy() == want).mean() > 0.99
-        assert (got.numpy()[~active] == 1 << 30).all()
-    key = rng.integers(0, 9, size=R).astype(np.int32)
-    wp, wi = (np.asarray(a) for a in jax_tracer._bucket_perm(
-        jnp.asarray(key), 9))
-    gp, gi = tracer._bucket_perm(torch.as_tensor(key), 9)
-    np.testing.assert_array_equal(gp.numpy(), wp)
-    np.testing.assert_array_equal(gi.numpy(), wi)
-    for method in ("octant", "partition"):
-        wp, wi = (np.asarray(a) for a in jax_tracer._compact_perm(
-            jnp.asarray(active), jnp.asarray(o), jnp.asarray(d), method))
-        gp, gi = tracer._compact_perm(torch.as_tensor(active),
-                                      torch.as_tensor(o), torch.as_tensor(d),
-                                      method)
-        np.testing.assert_array_equal(gp.numpy(), wp)
-        np.testing.assert_array_equal(gi.numpy(), wi)
-    for method in ("argsort", "argsort_om"):
-        gp, gi = tracer._compact_perm(torch.as_tensor(active),
-                                      torch.as_tensor(o), torch.as_tensor(d),
-                                      method)
-        assert active[gp.numpy()][:active.sum()].all()
-        np.testing.assert_array_equal(gp[gi].numpy(), np.arange(R))
-    with pytest.raises(ValueError):
-        tracer._compact_perm(torch.as_tensor(active), torch.as_tensor(o),
-                             torch.as_tensor(d), "argsort_fast")
+    want = np.asarray(jax_tracer._compact_key(
+        jnp.asarray(active), jnp.asarray(o), jnp.asarray(d)))
+    got = tracer._compact_key(torch.as_tensor(active), torch.as_tensor(o),
+                              torch.as_tensor(d))
+    assert got.dtype == torch.int32
+    # the quantized origin truncates a float: a last-ulp difference may
+    # move a handful of keys by one cell
+    assert (got.numpy() == want).mean() > 0.99
+    assert (got.numpy()[~active] == 1 << 30).all()
+    # the bounce loop's permutation: a stable argsort of the key, live
+    # rays first, as the JAX package's default ("argsort") compaction
+    gp = torch.argsort(got, stable=True).numpy()
+    wp = np.asarray(jnp.argsort(jnp.asarray(want), stable=True))
+    assert active[gp][:active.sum()].all()
+    np.testing.assert_array_equal(np.sort(gp), np.arange(R))
+    np.testing.assert_array_equal(gp, np.argsort(got.numpy(), kind="stable"))
+    np.testing.assert_array_equal(np.sort(gp[:active.sum()]),
+                                  np.sort(wp[:active.sum()]))
 
 
 def test_vertex_normals_and_shade_arrays_match_jax():
@@ -261,9 +292,13 @@ def test_unported_engines_raise(engine):
     with pytest.raises(ValueError):
         tracer.make_frame_fn(scene, cam, tracer.RTConfig(
             width=16, height=16, engine="nope"), device="cpu")
-    # use_bvh=False forces the all-pairs oracle, whatever the engine says
-    tracer.make_intersectors(scene, tracer.RTConfig(
-        width=16, height=16, engine=engine, use_bvh=False), "cpu")
+    # a JAX config's use_bvh=False converts to the all-pairs oracle
+    jcfg = jax_tracer.RTConfig(width=16, height=16, engine=engine,
+                               use_bvh=False)
+    cfg = interop.rt_config_from_reference(jcfg)
+    assert cfg.engine == "brute" and cfg.width == 16
+    assert tracer.resolve_engine(cfg, scene.faces.shape[0]) == "brute"
+    tracer.make_intersectors(scene, cfg, "cpu")
 
 
 def test_large_scene_takes_bvh_blocks_engine(monkeypatch):
