@@ -181,6 +181,18 @@ exits non-zero, and only a run where every phase passed prints the final
                around the call and as a graph's replay beside its bytes
                bound, the plain loop's forward and its autograd backward
                (its two #5 calls included)
+ 19c. diff_prim — the triangle set-up's two kernels (csrc/diff_prim.cu) at
+               the fit cell's shapes (V 2,562, P 5,120, textured): the
+               forward's record, z and corner list equal to the plain
+               set-up's (pipeline._prim_setup) on the card, the backward to
+               its twin (diff.cuda_prim.prim_backward_reference), bit for
+               bit, the backward twice alike; the Function's three gradients
+               within 1e-5 of each one's largest magnitude of autograd's
+               through the plain set-up; two steps alike, 2 launches a step;
+               CUDA events, median of 20: each kernel around the call and as
+               a graph's replay beside its bound, the Function's forward and
+               backward (its three #5 calls included), and the plain
+               set-up's forward and autograd backward
 
   20. rt_after_vs_plain — the next-hit-after kernel against its plain torch
                version, bit for bit (``rays_differ`` must be 0): the check
@@ -1852,7 +1864,7 @@ def diff_phases(dev, card) -> list:
     timing = {}
     params, static, cfg = scene(check.train_scene, DIFF_SIZE)
     setup, pids, origins = vis_inputs(params, static, cfg)
-    edges, zs = setup["edges"], setup["z"]
+    edges, zs = setup["edges"].contiguous(), setup["z"]
 
     def vis():
         return cuda_vis.visibility_hard(edges, zs, pids, origins,
@@ -2005,10 +2017,7 @@ def diff_shade_phase(dev, card) -> dict:
         origins = pipeline._origins(static, cfg).to(torch.int32)
         steps = pipeline.visibility_slots(setup, static["tile_pids"], origins,
                                           cfg)[0][..., 0].contiguous()
-        P = setup["edges"].shape[0]
-        rec = torch.cat([setup["edges"].reshape(P, 9),
-                         setup["color"].reshape(P, 12),
-                         setup["uv"].reshape(P, 6)], 1)
+        rec = setup["rec"]
         tex_quad = pipeline._quad_texture(params["tex"].detach()).contiguous()
     pids = static["tile_pids"]
     (T, M), C = pids.shape, rec.shape[1]
@@ -2131,6 +2140,175 @@ def diff_shade_phase(dev, card) -> dict:
             "backward_plain_ms": bwd_t["plain_ms"],
             "backward_bound_ms": bwd_t["bound"]["bound_ms"],
             "library_ms": None, "tiles": T, "M": M}
+
+
+# float operations a triangle of the set-up kernels (csrc/diff_prim.cu),
+# counted from their bodies.  Forward: three corners' x, y (2 multiplies and
+# an add each) and z (a divide, a multiply, an add), 27; the sign's three
+# cofactors c (3 each) and det (3 multiplies, 2 adds) and its compare, 15;
+# each edge's a, b, c (3 each) times the sign and the offset (add, multiply,
+# add), 45.  Backward: the corners without z, 18, the sign, 15; each edge's
+# half offset, its two sums and three products by the sign, 18; each
+# corner's x, y and w gradients (4 multiplies, 3 adds each), the two scales
+# and w's two adds, 75.
+DIFF_PRIM_FWD_OPS = 27 + 15 + 45
+DIFF_PRIM_BWD_OPS = 18 + 15 + 18 + 75
+
+
+def diff_prim_phase(dev, card) -> dict:
+    """Phase 19c: the triangle set-up (csrc/diff_prim.cu, launched by
+    diff/pipeline._PrimSetup) at the fit cell's shapes, the 1024x1024
+    training scene (V = 2,562, P = 5,120, textured).  The forward's record,
+    z and corner list against the plain set-up (pipeline._prim_setup on the
+    card) bit for bit; the backward against its twin
+    (diff/cuda_prim.prim_backward_reference) bit for bit and twice alike;
+    the Function's three parameter gradients against autograd's through the
+    plain set-up, within 1e-5 of each one's largest magnitude; a step
+    (check.step) twice alike, 2 launches a step, three #5 calls among its
+    five.  Then CUDA events, median of 20: each kernel around the call and
+    as a CUDA graph's replay beside its bound (bytes at 3.35 TB/s, each
+    input read once and each output written once; operations), the
+    Function's backward with its three #5 calls, and the plain set-up's
+    forward and its autograd backward (its three #5 calls included).
+    Returns the kernels line's entry."""
+    from skybox_rt_tpu_torch.diff import (check, cuda_prim, cuda_texgrad,
+                                          pipeline)
+
+    def same(got, want):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            return False
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        return torch.equal(got, want)
+
+    params, static, cfg = check.train_scene(DIFF_SIZE)
+    params, static = check.to_device(params, static, dev)
+    indices = static["indices"]
+    P, V = indices.shape[0], params["pos"].shape[0]
+    names = ("pos", "color", "uv")
+    tables = [params[k].detach() for k in names]
+    C = cuda_prim.REC_WIDTH_TEXTURED
+    g = torch.randn((P, C), device=dev,
+                    generator=torch.Generator(dev).manual_seed(23))
+    size = (cfg.width, cfg.height)
+
+    # the kernels against the plain set-up and the twin, bit for bit
+    cuda_prim.reset_launch_count()
+    rec, z, corner = cuda_prim.prim_forward(*tables, indices, *size,
+                                            cfg.near, cfg.far)
+    back = cuda_prim.prim_backward(tables[0], indices, g, *size)
+    again = cuda_prim.prim_backward(tables[0], indices, g, *size)
+    torch.cuda.synchronize()
+    if cuda_prim.launch_count != 3:
+        raise AssertionError(f"3 calls launched {cuda_prim.launch_count}")
+
+    def plain_setup():
+        setup = pipeline._prim_setup(params, indices, cfg)
+        return pipeline._record(setup), setup["z"]
+
+    want_rec, want_z = plain_setup()
+    want_corner = torch.cat([indices[:, 0], indices[:, 1], indices[:, 2]])
+    twin = cuda_prim.prim_backward_reference(tables[0], indices, g, *size)
+    for name, got, want in (("rec", rec, want_rec.detach()),
+                            ("z", z, want_z.detach()),
+                            ("corner", corner, want_corner),
+                            *zip(("dpos", "dcol", "duv"), back, twin)):
+        if not same(got, want):
+            raise AssertionError(
+                f"diff_prim {name} != plain on "
+                f"{int((got != want).sum())} of {got.numel()} values")
+    for name, a, b in zip(("dpos", "dcol", "duv"), back, again):
+        if not same(a, b):
+            raise AssertionError(f"two backward launches differ in {name}")
+
+    # the Function's gradients against autograd's through the plain set-up
+    def grads_of(make):
+        for p in params.values():
+            p.grad = None
+        make()[0].backward(g)
+        return {k: params[k].grad.clone() for k in names}
+
+    def kernel_setup():
+        return pipeline.prim_setup(params, indices, cfg)["rec"], None
+
+    got, want = grads_of(kernel_setup), grads_of(plain_setup)
+    grad_err = {}
+    for k in names:
+        scale = float(want[k].abs().max())
+        grad_err[k] = float((got[k] - want[k]).abs().max()) / scale
+        if not grad_err[k] <= 1e-5:
+            raise AssertionError(f"gradient of {k} off autograd's by "
+                                 f"{grad_err[k]} of its largest magnitude")
+
+    # a whole step, twice
+    def step_grads():
+        check.step(params, static, cfg)
+        return {k: p.grad.clone() for k, p in params.items()}
+
+    cuda_prim.reset_launch_count()
+    cuda_texgrad.reset_launch_count()
+    grads1, grads2 = step_grads(), step_grads()
+    torch.cuda.synchronize()
+    step_launches = cuda_prim.launch_count
+    if step_launches != 4 or cuda_texgrad.launch_count != 10:
+        raise AssertionError(f"two steps launched {step_launches} set-up "
+                             f"and {cuda_texgrad.launch_count} #5 kernels")
+    for k in check.PARAM_NAMES:
+        if not same(grads1[k], grads2[k]):
+            raise AssertionError(f"two steps' gradients of {k} differ")
+
+    # timing (printed, not judged)
+    fwd_bytes = nbytes(*tables, indices, rec, z, corner)
+    bwd_bytes = nbytes(tables[0], indices, g, *back)
+
+    def kernel_fwd():
+        return cuda_prim.prim_forward(*tables, indices, *size, cfg.near,
+                                      cfg.far)
+
+    def kernel_bwd():
+        return cuda_prim.prim_backward(tables[0], indices, g, *size)
+
+    def backward_ms(make):
+        times = []
+        for _ in range(WARMUP + REPS):
+            for p in params.values():
+                p.grad = None
+            out = make()[0]
+            torch.cuda.synchronize()
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            out.backward(g)
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+        return float(np.median(times[WARMUP:]))
+
+    timing = {
+        "forward": {"kernel_ms": median_ms(kernel_fwd),
+                    "graph_ms": graph_ms(kernel_fwd),
+                    "bound": bound(fwd_bytes, P * DIFF_PRIM_FWD_OPS),
+                    "function_ms": median_ms(kernel_setup),
+                    "plain_ms": median_ms(plain_setup)},
+        "backward": {"kernel_ms": median_ms(kernel_bwd),
+                     "graph_ms": graph_ms(kernel_bwd),
+                     "bound": bound(bwd_bytes, P * DIFF_PRIM_BWD_OPS),
+                     "function_ms": backward_ms(kernel_setup),
+                     "plain_ms": backward_ms(plain_setup)}}
+    phase("diff_prim", card=card, reps=REPS, triangles=P, vertices=V, C=C,
+          equal=True, backward_bit_identical_twice=True,
+          step_launches=step_launches, grad_rel_err=grad_err, **timing)
+    fwd, bwd = timing["forward"], timing["backward"]
+    return {"name": "diff_prim", "route": "cuda",
+            "source": "skybox_rt_tpu_torch/csrc/diff_prim.cu",
+            "replaces": None,   # XLA's fusion of the JAX prim_setup
+            "launches": step_launches, "max_abs_err": 0,
+            "ms": fwd["kernel_ms"], "graph_ms": fwd["graph_ms"],
+            "plain_ms": fwd["plain_ms"], **fwd["bound"],
+            "backward_ms": bwd["kernel_ms"],
+            "backward_graph_ms": bwd["graph_ms"],
+            "backward_plain_ms": bwd["plain_ms"],
+            "backward_bound_ms": bwd["bound"]["bound_ms"],
+            "library_ms": None, "triangles": P}
 
 
 C3_GOLDEN_SIZE = 128    # the size of the committed JAX golden of config 3
@@ -3866,7 +4044,8 @@ def main() -> int:
     small_entries, small = small_phases(dev, card)
     shade_entry = shade_phase(dev, card, northstar["scene"], small["scene"])
     rt_entries = (large_entries + small_entries + [shade_entry]
-                  + diff_phases(dev, card) + [diff_shade_phase(dev, card)])
+                  + diff_phases(dev, card) + [diff_shade_phase(dev, card),
+                                              diff_prim_phase(dev, card)])
     config3_entries, flat_bounce = config3_phases(dev, card)
     next(e for e in rt_entries if e["name"] == "rt_closest_hit_flat")[
         "bounce1_sample"] = flat_bounce

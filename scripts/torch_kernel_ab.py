@@ -66,12 +66,13 @@ def main(argv=None) -> int:
     params, static = check.to_device(params, static, requires_grad=False)
     with torch.no_grad():
         setup = pipeline.prim_setup(params, static["indices"], cfg)
+    edges = setup["edges"].contiguous()    # a view of the record, or not
     pids = static["tile_pids"]
     origins = static["tile_xy"] * (1 << cfg.tile_logsize)
 
     def vis():
-        return cuda_vis.visibility_hard(setup["edges"], setup["z"], pids,
-                                        origins, cfg.tile_logsize, True)
+        return cuda_vis.visibility_hard(edges, setup["z"], pids, origins,
+                                        cfg.tile_logsize, True)
 
     out["visibility"] = {"T": pids.shape[0], "M": pids.shape[1],
                          "ms": cs.median_ms(vis), "graph_ms": cs.graph_ms(vis)}

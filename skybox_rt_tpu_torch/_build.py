@@ -10,8 +10,9 @@ FMA contraction, which the exact-int raster path (csrc/raster_visibility.cu),
 the ray queries' agreement with their plain versions (csrc/rt_bvh.cu,
 csrc/rt_clustered.cu, csrc/rt_streamed.cu) and the hit shading's
 (csrc/rt_shade.cu), the float visibility's
-(csrc/diff_visibility.cu) and slot shading's (csrc/diff_shade.cu), the row
-accumulation's pinned sum order
+(csrc/diff_visibility.cu), slot shading's (csrc/diff_shade.cu) and
+triangle set-up's (csrc/diff_prim.cu), the row accumulation's pinned sum
+order
 (csrc/diff_accumulate.cu) and the matrix product's pinned arithmetic
 (csrc/apps_sgemm.cu, whose fused multiply-adds are explicit __fmaf_rn)
 need; fast math is never used.  The host binning
@@ -87,6 +88,10 @@ _SIGNATURES = {
     # rec tile_pids texq steps origins grad grec rows anchor, T M C
     # tile_logsize TH TW modulate, the stream
     "skybox_diff_shade_backward": [_P] * 9 + [_I] * 7 + [_P],
+    # pos color uv indices rec z corner, P V, hw hh hd zo, the stream
+    "skybox_diff_prim_forward": [_P] * 7 + [_I] * 2 + [_F] * 4 + [_P],
+    # pos indices grec dpos dcol duv, P V, hw hh, the stream
+    "skybox_diff_prim_backward": [_P] * 6 + [_I] * 2 + [_F] * 2 + [_P],
     # a b c, m n k, the stream
     "skybox_apps_sgemm": [_P] * 3 + [_I] * 3 + [_P],
 }

@@ -21,11 +21,13 @@ Discrete-step policy: coverage is hard in the forward image; with
 gradients.  The depth test picks a hard winner and gradients flow through
 the winning fragment.
 
-The hand-written kernels on this path: hard-mode visibility
-(``diff/cuda_vis.py``, ``csrc/diff_visibility.cu``), the hard-mode one-slot
-shade, forward and backward (``diff/cuda_shade.py``, ``csrc/diff_shade.cu``,
-through :class:`_ShadeHard`), and the row accumulation behind every
-gather's backward (``diff/cuda_texgrad.py``, ``csrc/diff_accumulate.cu``).
+The hand-written kernels on this path: the triangle set-up, forward and
+backward (``diff/cuda_prim.py``, ``csrc/diff_prim.cu``, through
+:class:`_PrimSetup`), hard-mode visibility (``diff/cuda_vis.py``,
+``csrc/diff_visibility.cu``), the hard-mode one-slot shade, forward and
+backward (``diff/cuda_shade.py``, ``csrc/diff_shade.cu``, through
+:class:`_ShadeHard`), and the row accumulation behind every gather's
+backward (``diff/cuda_texgrad.py``, ``csrc/diff_accumulate.cu``).
 :func:`gather_rows`, :func:`gather_tile_rows` and
 :func:`sample_texture_bilinear_quad` are ``torch.autograd.Function``s
 with the hand-written backward passes of the JAX package's ``custom_vjp``s:
@@ -45,7 +47,7 @@ import dataclasses
 import torch
 
 from ..utils import tracing
-from . import cuda_shade, cuda_texgrad, cuda_vis
+from . import cuda_prim, cuda_shade, cuda_texgrad, cuda_vis
 from .cuda_vis import barycentrics as _barycentrics
 from .cuda_vis import tile_coords as _tile_coords
 
@@ -144,9 +146,75 @@ def sample_texture_bilinear(tex, u, v):
 def prim_setup(params, indices, cfg: DiffRenderConfig):
     """Differentiable geometry processing: vertices -> per-prim raster data
     (gradients flow through the edge coefficients back to the positions),
-    in the stage ``diff.prim_setup``.  Returns a dict of (P, ...) tensors."""
+    in the stage ``diff.prim_setup``.  Returns a dict of (P, ...) tensors:
+    ``edges`` (P, 3, 3), ``z`` (P, 3), ``color`` (P, 3, 4) and, textured,
+    ``uv`` (P, 3, 2) and ``tex``.
+
+    CUDA tensors take :class:`_PrimSetup`, two kernel launches a step
+    (forward and backward), in every mode: the setup adds ``rec``, the
+    packed record (P, 21 | 27) that :func:`shade_slots` reads, and edges,
+    color and uv are views of it; z carries no gradient.  It launches or
+    raises.  CPU tensors run :func:`_prim_setup`, the kernels' plain
+    version."""
     with tracing.stage("diff.prim_setup"):
+        if params["pos"].is_cuda:
+            return _prim_setup_kernel(params, indices, cfg)
         return _prim_setup(params, indices, cfg)
+
+
+class _PrimSetup(torch.autograd.Function):
+    """prim_setup on CUDA tensors: the forward and backward kernels of
+    ``cuda_prim``.  The backward recomputes every triangle from the saved
+    positions and indices and hands the corner-major pos, colour and uv
+    rows to _accumulate_rows over the corner index list, as the three
+    gather_rows' backward passes of :func:`_prim_setup` do."""
+
+    @staticmethod
+    def forward(ctx, pos, color, uv, indices, cfg):
+        rec, z, corner = cuda_prim.prim_forward(
+            pos, color, uv, indices, cfg.width, cfg.height, cfg.near, cfg.far)
+        ctx.save_for_backward(pos, indices)
+        ctx.corner = corner
+        ctx.cfg = cfg
+        ctx.mark_non_differentiable(z)
+        return rec, z
+
+    @staticmethod
+    def backward(ctx, grec, _):
+        pos, indices = ctx.saved_tensors
+        cfg = ctx.cfg
+        rows = cuda_prim.prim_backward(pos, indices, grec.contiguous(),
+                                       cfg.width, cfg.height)
+        V = pos.shape[0]
+        grads = [None if d is None or not need
+                 else _accumulate_rows(ctx.corner, d, V)
+                 for d, need in zip(rows, ctx.needs_input_grad[:3])]
+        return (*grads, None, None)
+
+
+def _prim_setup_kernel(params, indices, cfg: DiffRenderConfig):
+    uv = params["uv"] if cfg.textured else None
+    rec, z = _PrimSetup.apply(params["pos"], params["color"], uv,
+                              indices.to(torch.int32).contiguous(), cfg)
+    P = rec.shape[0]
+    setup = {"rec": rec, "edges": rec[:, :9].view(P, 3, 3), "z": z,
+             "color": rec[:, 9:21].view(P, 3, 4)}
+    if cfg.textured:
+        setup["uv"] = rec[:, 21:27].view(P, 3, 2)
+        setup["tex"] = params["tex"]
+    return setup
+
+
+def _record(setup):
+    """The packed per-prim record (P, 21 | 27): edges 9 | colour 12 | uv 6.
+    The kernel's setup carries it; the plain one's parts are concatenated."""
+    if "rec" in setup:
+        return setup["rec"]
+    P = setup["edges"].shape[0]
+    parts = [setup["edges"].reshape(P, 9), setup["color"].reshape(P, 12)]
+    if "uv" in setup:
+        parts.append(setup["uv"].reshape(P, 6))
+    return torch.cat(parts, dim=1)
 
 
 def _prim_setup(params, indices, cfg: DiffRenderConfig):
@@ -516,8 +584,9 @@ def shade_slots(setup, tile_pids, slot_steps, origins,
     the *differentiable* setup, so gradients flow to pos / color / uv /
     texels with O(pixels * K) work.
 
-    Per-prim data is packed into ONE (P, C) record array so each pixel
-    does a single row gather, and texels come from the rolled quad table
+    Per-prim data is packed into ONE (P, C) record array (:func:`_record`:
+    the kernel set-up writes it so) so each pixel does a single row gather,
+    and texels come from the rolled quad table
     (_quad_texture): one texel gather per bilinear sample.  Two-level record
     access: global rows -> per-tile table (its transpose is one small
     accumulation), then a slot-index gather a pixel.
@@ -529,14 +598,8 @@ def shade_slots(setup, tile_pids, slot_steps, origins,
     launches or raises.  CPU tensors, K > 1 and the blended and soft modes
     run :func:`shade_loop`.
     """
-    edges = setup["edges"]
-    P = edges.shape[0]
-    parts = [edges.reshape(P, 9), setup["color"].reshape(P, 12)]
-    tex_quad = None
-    if cfg.textured:
-        parts.append(setup["uv"].reshape(P, 6))
-        tex_quad = _quad_texture(setup["tex"])
-    rec = torch.cat(parts, dim=1)                   # (P, 21 | 27)
+    rec = _record(setup)                            # (P, 21 | 27)
+    tex_quad = _quad_texture(setup["tex"]) if cfg.textured else None
     if _is_hard(cfg) and slot_steps.shape[-1] == 1 and slot_steps.is_cuda:
         return _ShadeHard.apply(
             rec, tex_quad, tile_pids.to(torch.int32).contiguous(),

@@ -400,14 +400,15 @@ def test_ctypes_signatures_match_the_sources():
             "skybox_rt_closest_hit_streamed",
             "skybox_rt_closest_hit_worklist", "skybox_apps_sgemm",
             "skybox_rt_shade_hits", "skybox_diff_shade_forward",
-            "skybox_diff_shade_backward"} <= set(found)
+            "skybox_diff_shade_backward", "skybox_diff_prim_forward",
+            "skybox_diff_prim_backward"} <= set(found)
     for name, kinds in found.items():
         assert kinds == _build._SIGNATURES[name], name
     names = {os.path.basename(s) for s in _build._sources()}
     assert names == {"raster_visibility.cu", "rt_bvh.cu", "rt_clustered.cu",
                      "rt_common.cuh", "diff_visibility.cu",
                      "diff_accumulate.cu", "rt_streamed.cu", "apps_sgemm.cu",
-                     "rt_shade.cu", "diff_shade.cu"}
+                     "rt_shade.cu", "diff_shade.cu", "diff_prim.cu"}
 
 
 def test_package_data_ships_every_source():
