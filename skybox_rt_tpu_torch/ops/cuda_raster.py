@@ -34,6 +34,7 @@ from ..core.fixed import s32
 from ..om import merger as om_merger
 from ..raster import edge as edge_mod
 from ..raster import interp as interp_mod
+from ..utils import tracing
 
 TILE_LOGSIZES = (3, 4, 5, 6)
 #: the pixels of one warp of the kernel: a patch PATCH_W wide, PATCH_H tall
@@ -48,14 +49,23 @@ PATCH_WARPS = 4
 WRAP_EXTENT = 512
 WRAP_SCISSOR = (13, 6, WRAP_EXTENT - 21, WRAP_EXTENT - 7)
 
-# Kernel launches made by visibility_tiles since the last reset: a run reads
-# it to show that its main path went through the kernel.
+# Kernel launches since the last reset: a run reads it to show that its
+# main path went through the kernel.  Each launch also adds 1 to the tracing
+# counter ``raster.vis_kernel``.  A launch captured into a CUDA graph counts
+# once for each replay of the graph (count_launch), not at capture.
 launch_count = 0
 
 
 def reset_launch_count() -> None:
     global launch_count
     launch_count = 0
+
+
+def count_launch() -> None:
+    """Count one launch of the kernel."""
+    global launch_count
+    launch_count += 1
+    tracing.count("raster.vis_kernel")
 
 
 def tile_grids(tile_xy: torch.Tensor, tile_logsize: int):
@@ -325,8 +335,8 @@ def visibility_tiles(render_state, edges, zattr, tile_pids, tile_xy,
     if rc != 0:
         raise RuntimeError(f"raster_visibility kernel launch failed: CUDA "
                            f"error {rc}")
-    global launch_count
-    launch_count += 1
+    if not torch.cuda.is_current_stream_capturing():
+        count_launch()
     if K > 0:
         return dsw, slots, cnt
     if fused:

@@ -26,6 +26,12 @@ Face is hardwired front (draw3d/kernel.cpp:225 passes face=0).  Framebuffers
 are (Hp, Wp) int32 tensors of u32 patterns, padded to tile multiples; a draw
 returns new buffers and leaves its inputs untouched (the blend retry
 re-renders from the same inputs).
+
+Stages (utils.tracing, device-stream times recorded): ``raster.visibility``
+around pass 1, ``raster.shade`` around pass 2 (interpolation, texture,
+the blend fold and the masked merge), both inside ``raster.tiles``
+(:func:`update_tiles`).  :class:`GraphedDraws` replays a frame's draws
+captured as CUDA graphs, inside the same stages.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from ..om import blend as blend_mod
 from ..raster import edge as edge_mod
 from ..raster import interp as interp_mod
 from ..texture import sampler as sampler_mod
+from ..utils.tracing import count, stage
 from . import cuda_raster
 
 FX24_ONE = 1 << 24
@@ -93,30 +100,32 @@ def _merge_color(om, valid, color, dst):
     return torch.where(valid, merged, dst)
 
 
-def render_tiles_deferred(render_state, texels, edges, attribs, zattr,
-                          tile_pids, tile_xy, sel_c, sel_d, tile_logsize,
-                          blend_slots=0):
-    """Both deferred passes over a set of gathered framebuffer tiles.
+def visibility_pass(render_state, edges, zattr, tile_pids, tile_xy, sel_d,
+                    tile_logsize, blend_slots=0):
+    """Pass 1 over gathered tiles: (ds words, what pass 2 reads), the
+    latter (winner, dx, dy) for an opaque draw and (slots, count) for a
+    blended one."""
+    dsw, *vis = cuda_raster.visibility_tiles(
+        render_state, edges, zattr, tile_pids, tile_xy, sel_d, tile_logsize,
+        fused=True, blend_slots=blend_slots)
+    return dsw, vis
 
-    sel_c, sel_d: (T, ts, ts) int32 tiles gathered at tile_xy.  Returns
-    (out_c, out_d, max_frag_count as a device scalar; 0 unless blended).
-    """
+
+def shade_pass(render_state, texels, edges, attribs, tile_xy, vis, sel_c,
+               tile_logsize, blend_slots=0):
+    """Pass 2 over gathered tiles from pass 1's ``vis``: (colour tiles,
+    max_frag_count as a device scalar; 0 unless blended)."""
     om = render_state.om
-    xs, ys = cuda_raster.tile_grids(tile_xy, tile_logsize)
     if blend_slots == 0:
-        dsw, win, dxw, dyw = cuda_raster.visibility_tiles(
-            render_state, edges, zattr, tile_pids, tile_xy, sel_d,
-            tile_logsize, fused=True)
+        win, dxw, dyw = vis
         color = _shade_pixels(render_state, texels, edges, attribs, win,
-                              xs, ys, grads=(dxw, dyw))
+                              None, None, grads=(dxw, dyw))
         if om.color_write:
             sel_c = _merge_color(om, win >= 0, color, sel_c)
-        return sel_c, dsw, torch.zeros((), dtype=torch.int32,
-                                       device=sel_c.device)
+        return sel_c, torch.zeros((), dtype=torch.int32, device=sel_c.device)
 
-    dsw, slots, cnt = cuda_raster.visibility_tiles(
-        render_state, edges, zattr, tile_pids, tile_xy, sel_d, tile_logsize,
-        blend_slots=blend_slots)
+    slots, cnt = vis
+    xs, ys = cuda_raster.tile_grids(tile_xy, tile_logsize)
     # fold slots in submission order: blend reads the evolving destination
     # (om_unit.cpp:107-113), then the masked write
     for k in range(blend_slots):
@@ -126,7 +135,25 @@ def render_tiles_deferred(render_state, texels, edges, attribs, zattr,
         blended = blend_mod.blend(om.blend, color, sel_c)
         if om.color_write:
             sel_c = _merge_color(om, win_k >= 0, blended, sel_c)
-    return sel_c, dsw, cnt.max()
+    return sel_c, cnt.max()
+
+
+def render_tiles_deferred(render_state, texels, edges, attribs, zattr,
+                          tile_pids, tile_xy, sel_c, sel_d, tile_logsize,
+                          blend_slots=0):
+    """Both deferred passes over a set of gathered framebuffer tiles.
+
+    sel_c, sel_d: (T, ts, ts) int32 tiles gathered at tile_xy.  Returns
+    (out_c, out_d, max_frag_count as a device scalar; 0 unless blended).
+    """
+    with stage("raster.visibility", stream=True):
+        dsw, vis = visibility_pass(render_state, edges, zattr, tile_pids,
+                                   tile_xy, sel_d, tile_logsize, blend_slots)
+    with stage("raster.shade", stream=True):
+        sel_c, max_cnt = shade_pass(render_state, texels, edges, attribs,
+                                    tile_xy, vis, sel_c, tile_logsize,
+                                    blend_slots)
+    return sel_c, dsw, max_cnt
 
 
 def tiles_view(fb: torch.Tensor, tile_logsize: int) -> torch.Tensor:
@@ -136,20 +163,91 @@ def tiles_view(fb: torch.Tensor, tile_logsize: int) -> torch.Tensor:
     return fb.view(Hp // ts, ts, Wp // ts, ts).permute(0, 2, 1, 3)
 
 
+def gather_tiles(tile_xy, fb_color, fb_ds, tile_logsize):
+    """Copies of both framebuffers and the binned tiles gathered from them:
+    (fb_color, fb_ds, (ty, tx), sel_c, sel_d)."""
+    at = (tile_xy[:, 1].to(torch.int64), tile_xy[:, 0].to(torch.int64))
+    fb_color = fb_color.clone()
+    fb_ds = fb_ds.clone()
+    return (fb_color, fb_ds, at, tiles_view(fb_color, tile_logsize)[at],
+            tiles_view(fb_ds, tile_logsize)[at])
+
+
+def scatter_tiles(at, fb_color, fb_ds, out_c, out_d, tile_logsize):
+    """Write the tiles back into the copies that gather_tiles made."""
+    tiles_view(fb_color, tile_logsize)[at] = out_c
+    tiles_view(fb_ds, tile_logsize)[at] = out_d
+
+
 def update_tiles(fn, tile_xy, fb_color, fb_ds, tile_logsize):
     """Gather the binned tiles from copies of the framebuffers, run
     ``fn(sel_c, sel_d) -> (out_c, out_d, *extra)`` and scatter the result
-    back.  Returns (fb_color, fb_ds, *extra)."""
-    tx = tile_xy[:, 0].to(torch.int64)
-    ty = tile_xy[:, 1].to(torch.int64)
-    fb_color = fb_color.clone()
-    fb_ds = fb_ds.clone()
-    fbc_t = tiles_view(fb_color, tile_logsize)
-    fbd_t = tiles_view(fb_ds, tile_logsize)
-    out_c, out_d, *extra = fn(fbc_t[ty, tx], fbd_t[ty, tx])
-    fbc_t[ty, tx] = out_c
-    fbd_t[ty, tx] = out_d
+    back.  Returns (fb_color, fb_ds, *extra).  The stage ``raster.tiles``
+    spans the call: less the stages that ``fn`` opens, it is the clones,
+    the gathers and the scatter."""
+    with stage("raster.tiles", stream=True):
+        fb_color, fb_ds, at, sel_c, sel_d = gather_tiles(
+            tile_xy, fb_color, fb_ds, tile_logsize)
+        out_c, out_d, *extra = fn(sel_c, sel_d)
+        scatter_tiles(at, fb_color, fb_ds, out_c, out_d, tile_logsize)
     return (fb_color, fb_ds, *extra)
+
+
+class GraphedDraws:
+    """A frame's deferred draws on the card, captured once as CUDA graphs
+    and replayed: the same kernels as render_arrays, one graph launch for
+    each part of a draw in place of its thousands of plain-torch launches.
+
+    ``draws``: (render_state, texels, dev_arrays, tile_logsize, blend_slots)
+    in submission order, rendered from the buffers (fb_color, fb_ds), which
+    stay as they are.  Each draw is four graphs, its gather, pass 1, pass 2
+    and scatter, so that :meth:`replay` opens the stages of the eager draw
+    around them and each device-stream span times its own part.  The
+    graphs share one memory pool and are replayed in the order they were
+    captured, so a tensor one graph writes is where the next reads it.
+    Capture runs the draws' code once and launches nothing; the caller has
+    run them once before, so nothing is loaded during capture.
+    """
+
+    def __init__(self, draws, fb_color, fb_ds):
+        pool = torch.cuda.graph_pool_handle()
+        self.parts = []
+
+        def capture(fn):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=pool):
+                out = fn()
+            return g, out
+
+        for rs, texels, dev_arrays, tls, k in draws:
+            edges, attribs, zattr, tile_pids, tile_xy = dev_arrays
+            gather, (fb_color, fb_ds, at, sel_c, sel_d) = capture(
+                lambda: gather_tiles(tile_xy, fb_color, fb_ds, tls))
+            vis, (dsw, v) = capture(lambda: visibility_pass(
+                rs, edges, zattr, tile_pids, tile_xy, sel_d, tls, k))
+            shade, (out_c, _) = capture(lambda: shade_pass(
+                rs, texels, edges, attribs, tile_xy, v, sel_c, tls, k))
+            scatter, _ = capture(lambda: scatter_tiles(
+                at, fb_color, fb_ds, out_c, dsw, tls))
+            self.parts.append((gather, vis, shade, scatter, k))
+        #: the last draw's colour buffer, which every replay rewrites
+        self.fb_color = fb_color
+
+    def replay(self) -> torch.Tensor:
+        """Render the frame again; returns :attr:`fb_color`.  Counts kernel
+        #1's launches and ``raster.blend_slots`` as the eager frame does."""
+        for gather, vis, shade, scatter, k in self.parts:
+            with stage("raster.tiles", stream=True):
+                gather.replay()
+                with stage("raster.visibility", stream=True):
+                    vis.replay()
+                    cuda_raster.count_launch()
+                with stage("raster.shade", stream=True):
+                    shade.replay()
+                scatter.replay()
+            if k:
+                count("raster.blend_slots", k)
+        return self.fb_color
 
 
 def render_arrays(render_state, texels, dev_arrays, fb_color, fb_ds,

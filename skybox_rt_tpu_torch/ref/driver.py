@@ -18,6 +18,13 @@ uint32 (H, W) ARGB.
 :func:`compile_frame_loop` is the device-wall measurement protocol: N
 frames, each data-dependent on the one before through
 ``FRAME_LOOP_SENTINEL``, timed at two loop lengths (bench_torch.py).
+
+Stages (utils.tracing): every frame that :func:`render_trace`,
+:func:`compile_frame` and :func:`compile_frame_loop` render is one
+``raster.frame`` (a frame stage); the set-up they share is
+``raster.prepare`` with ``.bin``, ``.upload`` and ``.blend_k``, and
+``.capture`` where compile_frame captures the draws as CUDA graphs.  The
+counter ``raster.blend_slots`` adds each blended draw's K in every frame.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from ..ops import deferred as deferred_mod
 from ..runtime import perf as perf_mod
 from ..texture import sampler as sampler_mod
 from ..texture.mipmap import generate_mipmaps
+from ..utils.tracing import count, stage
 from . import renderer
 
 CLEAR_COLOR = np.uint32(0xFF000000)   # main.cpp:47
@@ -163,6 +171,23 @@ def render_trace(trace: cgltrace.CGLTrace, width: int, height: int,
     """
     _check_mode(mode)
     device = resolve_device(device)
+    while True:
+        with stage("raster.frame", frame=True):
+            out, stale = _render_trace_once(
+                trace, width, height, tile_logsize, start_draw, end_draw,
+                stats, mode, measure_traffic, device)
+        if not stale:
+            return out
+        # the trace changed under a cached K: measure again (the draws
+        # are counted once, as in the JAX package)
+        trace._blend_k_cache.pop((width, height, tile_logsize), None)
+        stats = None
+
+
+def _render_trace_once(trace, width, height, tile_logsize, start_draw,
+                       end_draw, stats, mode, measure_traffic, device):
+    """One frame of :func:`render_trace`: (framebuffer, whether a cached
+    blend K overflowed)."""
     deferred_mode = mode in DEFERRED_MODES
     if deferred_mode:
         cache = trace.__dict__.setdefault("_blend_k_cache", {})
@@ -189,6 +214,8 @@ def render_trace(trace: cgltrace.CGLTrace, width: int, height: int,
                 render_state, texels, binned, fbc, fbd, info=info,
                 blend_k=hint or None, overflow_out=pending if hint else None)
             ks[d] = info["blend_k"]
+            if ks[d]:
+                count("raster.blend_slots", ks[d])
         else:
             fbc, fbd = renderer.render_drawcall(render_state, texels, binned,
                                                 fbc, fbd)
@@ -200,13 +227,7 @@ def render_trace(trace: cgltrace.CGLTrace, width: int, height: int,
                 binned, render_state, counts=counts))
 
     out = fixed.to_numpy_u32(fbc[:height, :width])
-    if deferred_mode and any(int(mc) > k for k, mc in pending):
-        # the trace changed under a cached K: measure again (the draws
-        # are counted once, as in the JAX package)
-        trace._blend_k_cache.pop((width, height, tile_logsize), None)
-        return render_trace(trace, width, height, tile_logsize, start_draw,
-                            end_draw, None, mode, measure_traffic, device)
-    return out
+    return out, deferred_mode and any(int(mc) > k for k, mc in pending)
 
 
 def render_scene(name: str, width: int, height: int, **kw) -> np.ndarray:
@@ -237,44 +258,61 @@ def prepare_drawcalls(trace: cgltrace.CGLTrace, width: int, height: int,
     return draws
 
 
-def _frame_setup(trace, width, height, tile_logsize, mode, device):
+def _frame_setup(trace, width, height, tile_logsize, mode, device,
+                 capture=False):
     """What compile_frame and compile_frame_loop share: the draws binned
     once, their arrays uploaded once, and blended draws' slot counts
     measured once with one deferred frame (exact: every call starts from
     the same cleared buffers and inputs).  Returns (render, arrays,
-    cleared): render(arrays, fbc, fbd) -> (fbc, fbd) runs every draw on the
-    device, without syncing."""
+    cleared, graphed): render(arrays, fbc, fbd) -> (fbc, fbd) runs every
+    draw on the device, without syncing; ``graphed``, with ``capture`` in
+    a deferred mode on the card, the draws captured from ``arrays`` and
+    the cleared buffers (ops.deferred.GraphedDraws), else None."""
     _check_mode(mode)
     device = resolve_device(device)
-    draws = prepare_drawcalls(trace, width, height, tile_logsize, device)
-    arrays = tuple((texels, deferred_mod.device_arrays(b, device))
-                   for _, texels, b in draws)
-
-    # draws write into copies (ops.deferred.update_tiles), so the cleared
-    # buffers are made once and reused by every frame
-    cleared = clear_framebuffers(width, height, tile_logsize, device)
-    blend_ks = [0] * len(draws)
-    if mode in DEFERRED_MODES:
-        fbc, fbd = cleared
-        for d, (rs, texels, b) in enumerate(draws):
-            info = {}
-            fbc, fbd = deferred_mod.render_drawcall(rs, texels, b, fbc, fbd,
-                                                    info=info)
-            blend_ks[d] = info["blend_k"]
-    statics = [(rs, b.tile_logsize, k)
-               for (rs, _, b), k in zip(draws, blend_ks)]
+    deferred = mode in DEFERRED_MODES
+    graphed = None
+    with stage("raster.prepare", mode=mode, width=width, height=height):
+        with stage("raster.prepare.bin", draws=len(trace.drawcalls)):
+            draws = prepare_drawcalls(trace, width, height, tile_logsize,
+                                      device)
+        with stage("raster.prepare.upload"):
+            arrays = tuple((texels, deferred_mod.device_arrays(b, device))
+                           for _, texels, b in draws)
+            # draws write into copies (ops.deferred.update_tiles), so the
+            # cleared buffers are made once and reused by every frame
+            cleared = clear_framebuffers(width, height, tile_logsize, device)
+        blend_ks = [0] * len(draws)
+        if deferred:
+            with stage("raster.prepare.blend_k"):
+                fbc, fbd = cleared
+                for d, (rs, texels, b) in enumerate(draws):
+                    info = {}
+                    fbc, fbd = deferred_mod.render_drawcall(
+                        rs, texels, b, fbc, fbd, info=info)
+                    blend_ks[d] = info["blend_k"]
+        statics = [(rs, b.tile_logsize, k)
+                   for (rs, _, b), k in zip(draws, blend_ks)]
+        if capture and deferred and device.type == "cuda":
+            with stage("raster.prepare.capture"):
+                graphed = deferred_mod.GraphedDraws(
+                    [(rs, texels, dev_arrays, tls, k) for (rs, tls, k),
+                     (texels, dev_arrays) in zip(statics, arrays)],
+                    *cleared)
 
     def render(arrays, fbc, fbd):
         for (rs, tls, k), (texels, dev_arrays) in zip(statics, arrays):
-            if mode in DEFERRED_MODES:
+            if deferred:
                 fbc, fbd, _ = deferred_mod.render_arrays(
                     rs, texels, dev_arrays, fbc, fbd, tls, blend_slots=k)
+                if k:
+                    count("raster.blend_slots", k)
             else:
                 fbc, fbd = renderer.render_arrays(rs, texels, dev_arrays,
                                                   fbc, fbd, tls)
         return fbc, fbd
 
-    return render, arrays, cleared
+    return render, arrays, cleared, graphed
 
 
 def compile_frame(trace: cgltrace.CGLTrace, width: int, height: int,
@@ -289,12 +327,21 @@ def compile_frame(trace: cgltrace.CGLTrace, width: int, height: int,
     starts from the same cleared buffers and inputs).  Returns
     ``(frame, arrays)``; ``frame(arrays)`` renders all draws on the device
     and returns the (H, W) int32 ARGB-pattern tensor, without syncing.
+    In a deferred mode on the card the draws are captured as CUDA graphs
+    (ops.deferred.GraphedDraws, ``raster.prepare.capture``) and
+    ``frame(arrays)`` with the returned ``arrays`` replays them and
+    returns a copy of the result, a tensor of its own; other arrays render
+    eagerly.
     """
-    render, arrays, cleared = _frame_setup(trace, width, height,
-                                           tile_logsize, mode, device)
+    render, arrays, cleared, graphed = _frame_setup(
+        trace, width, height, tile_logsize, mode, device, capture=True)
+    captured = arrays
 
     def frame(arrays):
-        fbc, _ = render(arrays, *cleared)
+        with stage("raster.frame", frame=True):
+            if graphed is not None and arrays is captured:
+                return graphed.replay()[:height, :width].clone()
+            fbc, _ = render(arrays, *cleared)
         return fbc[:height, :width]
 
     return frame, arrays
@@ -335,17 +382,18 @@ def compile_frame_loop(trace: cgltrace.CGLTrace, width: int, height: int,
     Returns (loop_fn, arrays): loop_fn(arrays) -> the final (H, W) int32
     ARGB-pattern tensor, as compile_frame's frame returns it.
     """
-    render, arrays, (clear_c, clear_d) = _frame_setup(
+    render, arrays, (clear_c, clear_d), _ = _frame_setup(
         trace, width, height, tile_logsize, mode, device)
     sentinel = fixed.s32(int(FRAME_LOOP_SENTINEL))
 
     def loop(arrays):
         fb = clear_c
         for _ in range(frames):
-            z = (fb == sentinel).sum(dtype=torch.int32)
-            shifted = tuple((texels, shift_arrays(dev_arrays, z))
-                            for texels, dev_arrays in arrays)
-            fb, _ = render(shifted, clear_c ^ z, clear_d ^ z)
+            with stage("raster.frame", frame=True):
+                z = (fb == sentinel).sum(dtype=torch.int32)
+                shifted = tuple((texels, shift_arrays(dev_arrays, z))
+                                for texels, dev_arrays in arrays)
+                fb, _ = render(shifted, clear_c ^ z, clear_d ^ z)
         return fb[:height, :width]
 
     return loop, arrays
